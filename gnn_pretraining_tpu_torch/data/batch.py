@@ -1,0 +1,170 @@
+"""Padded, masked graph batches as torch tensors.
+
+The port of ``gnn_pretraining_tpu/data/batch.py``: the same static-shape
+layout (nodes of the batched graphs concatenated then zero-padded to
+``n_pad``, edges to ``e_pad``, graph slots to ``g_pad``, validity masks
+carrying the real sizes), read from the same on-disk ``GraphStore`` ``.npz``
+files. ``GraphBatch`` is a plain dataclass of tensors with ``.to(device)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+def pad_to(x: np.ndarray, size: int, axis: int = 0, value=0) -> np.ndarray:
+    pad = size - x.shape[axis]
+    if pad < 0:
+        raise ValueError(f"cannot pad axis {axis} of {x.shape} to {size}")
+    if pad == 0:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, pad)
+    return np.pad(x, widths, constant_values=value)
+
+
+def round_up(x: int, m: int = 8) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass
+class GraphBatch:
+    """A padded multi-graph batch (all fields tensors, static shapes)."""
+
+    x: torch.Tensor                 # [N, D] f32 node features
+    senders: torch.Tensor           # [E] i32 global src node id (padding: 0)
+    receivers: torch.Tensor         # [E] i32 global dst node id (padding: 0)
+    edge_mask: torch.Tensor         # [E] f32 1.0 for real edges
+    edge_graph: torch.Tensor        # [E] i32 graph id per edge (padding: 0)
+    node_mask: torch.Tensor         # [N] f32 1.0 for real nodes
+    node_graph: torch.Tensor        # [N] i32 graph id per node (padding: 0)
+    graph_mask: torch.Tensor        # [G] f32 1.0 for real graphs
+    node_start: torch.Tensor        # [G] i32 first global node id of each graph
+    n_node: torch.Tensor            # [G] i32 valid node count per graph
+    n_edge: torch.Tensor            # [G] i32 valid edge count per graph
+    y: torch.Tensor                 # [G] i32 graph labels (0 where absent)
+    graph_properties: torch.Tensor  # [G, P] f32 standardized targets
+
+    @property
+    def num_nodes(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def num_edges(self) -> int:
+        return self.senders.shape[0]
+
+    @property
+    def num_graphs(self) -> int:
+        return self.graph_mask.shape[0]
+
+    def to(self, device) -> "GraphBatch":
+        return GraphBatch(**{f.name: getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass
+class GraphStore:
+    """Host-side ragged storage of one dataset (the JAX package's ``.npz``
+    layout): node/edge arrays concatenated with offset tables."""
+
+    name: str
+    node_features: np.ndarray       # [sumN, D] f32
+    edge_index: np.ndarray          # [2, sumE] i32 (per-graph-local ids)
+    node_offsets: np.ndarray        # [G+1] i64
+    edge_offsets: np.ndarray        # [G+1] i64
+    y: np.ndarray                   # [G] graph labels (or [N] node labels)
+    splits: Dict[str, np.ndarray]
+    graph_properties: Optional[np.ndarray] = None  # [G, 12] f32
+    node_y: Optional[np.ndarray] = None            # [sumN] node labels
+    meta: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+    @property
+    def num_graphs(self) -> int:
+        return len(self.node_offsets) - 1
+
+    @classmethod
+    def load(cls, path) -> "GraphStore":
+        z = np.load(path, allow_pickle=False)
+        splits = {k[len("split__"):]: z[k] for k in z.files if k.startswith("split__")}
+        meta = {k[len("meta__"):]: str(z[k]) for k in z.files
+                if k.startswith("meta__")}
+        return cls(
+            meta=meta,
+            name=str(z["name"]),
+            node_features=z["node_features"],
+            edge_index=z["edge_index"],
+            node_offsets=z["node_offsets"],
+            edge_offsets=z["edge_offsets"],
+            y=z["y"],
+            splits=splits,
+            graph_properties=z["graph_properties"] if "graph_properties" in z.files else None,
+            node_y=z["node_y"] if "node_y" in z.files else None,
+        )
+
+
+def build_batch(store: GraphStore, graph_indices: Sequence[int],
+                n_pad: int, e_pad: int, g_pad: int,
+                with_properties: bool = False) -> GraphBatch:
+    """Concatenate the selected graphs into one padded ``GraphBatch`` on the
+    CPU (the JAX package's numpy path): local edge ids are relabelled to
+    global ones, then every array is zero-padded."""
+    g = len(graph_indices)
+    if g > g_pad:
+        raise ValueError(f"{g} graphs > g_pad={g_pad}")
+    d = store.node_features.shape[1]
+    p = store.graph_properties.shape[1] if store.graph_properties is not None else 12
+
+    xs: List[np.ndarray] = [np.zeros((0, d), np.float32)]
+    send: List[np.ndarray] = [np.zeros(0, np.int64)]
+    recv: List[np.ndarray] = [np.zeros(0, np.int64)]
+    edge_graph: List[np.ndarray] = [np.zeros(0, np.int32)]
+    node_graph: List[np.ndarray] = [np.zeros(0, np.int32)]
+    node_start = np.zeros(g_pad, np.int32)
+    n_node = np.zeros(g_pad, np.int32)
+    n_edge = np.zeros(g_pad, np.int32)
+    y = np.zeros(g_pad, np.int32)
+    props = np.zeros((g_pad, p), np.float32)
+
+    cursor = 0
+    for slot, gi in enumerate(graph_indices):
+        n0, n1 = store.node_offsets[gi], store.node_offsets[gi + 1]
+        e0, e1 = store.edge_offsets[gi], store.edge_offsets[gi + 1]
+        nn, ne = int(n1 - n0), int(e1 - e0)
+        xs.append(store.node_features[n0:n1])
+        ei = store.edge_index[:, e0:e1].astype(np.int64)
+        send.append(ei[0] + cursor)
+        recv.append(ei[1] + cursor)
+        edge_graph.append(np.full(ne, slot, np.int32))
+        node_graph.append(np.full(nn, slot, np.int32))
+        node_start[slot] = cursor
+        n_node[slot] = nn
+        n_edge[slot] = ne
+        if store.y.shape[0] == store.num_graphs:
+            y[slot] = store.y[gi]
+        if with_properties and store.graph_properties is not None:
+            props[slot] = store.graph_properties[gi]
+        cursor += nn
+
+    total_n = cursor
+    total_e = int(sum(a.shape[0] for a in send))
+    if total_n > n_pad or total_e > e_pad:
+        raise ValueError(f"batch ({total_n} nodes, {total_e} edges) exceeds "
+                         f"padding ({n_pad}, {e_pad})")
+
+    arrays = dict(
+        x=pad_to(np.concatenate(xs, 0).astype(np.float32), n_pad),
+        senders=pad_to(np.concatenate(send).astype(np.int32), e_pad),
+        receivers=pad_to(np.concatenate(recv).astype(np.int32), e_pad),
+        edge_mask=pad_to(np.ones(total_e, np.float32), e_pad),
+        edge_graph=pad_to(np.concatenate(edge_graph), e_pad),
+        node_mask=pad_to(np.ones(total_n, np.float32), n_pad),
+        node_graph=pad_to(np.concatenate(node_graph), n_pad),
+        graph_mask=pad_to(np.ones(g, np.float32), g_pad),
+        node_start=node_start, n_node=n_node, n_edge=n_edge, y=y,
+        graph_properties=props)
+    return GraphBatch(**{k: torch.from_numpy(np.ascontiguousarray(v))
+                         for k, v in arrays.items()})

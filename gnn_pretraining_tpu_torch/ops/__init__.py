@@ -1,0 +1,19 @@
+"""Compute ops: segment reductions and the GIN aggregation (kernel K1).
+
+The aggregation entry ``spmm`` is reached as ``ops.spmm.spmm``: the package
+attribute ``spmm`` is its module."""
+
+from gnn_pretraining_tpu_torch.ops.segment import (
+    segment_count,
+    segment_max,
+    segment_mean,
+    segment_sum,
+)
+from gnn_pretraining_tpu_torch.ops.spmm import (
+    build_dense_adjacency,
+    gin_aggregate,
+    gin_aggregate_coo,
+    gin_aggregate_dense,
+    gin_spmm_fwd,
+    spmm_reference,
+)

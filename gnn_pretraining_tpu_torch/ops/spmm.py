@@ -1,0 +1,153 @@
+"""GIN neighbourhood aggregation: ``z = A @ h + (1 + eps) * h``.
+
+Port of ``gnn_pretraining_tpu/ops/spmm.py``. The paths:
+
+  * ``gin_aggregate_coo``   -- gather + ``index_add_`` over the COO edge list
+                               (reference semantics);
+  * ``gin_aggregate_dense`` -- ``A @ h`` as one f32 matmul;
+  * ``spmm``                -- kernel K1-fwd (``csrc/gin_spmm.cu``) on a CUDA
+                               tensor; its plain version ``spmm_reference``
+                               on a CPU tensor, and only there.
+
+The adjacency is built once per batch (``build_dense_adjacency``) and reused
+by all 5 GIN layers. K1's backward (``Aᵀ g + (1 + eps) g``) is not ported
+yet, so ``spmm`` on the card refuses inputs that would need a gradient.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gnn_pretraining_tpu_torch import config
+from gnn_pretraining_tpu_torch.ops import _build
+
+MODES = {"highest": 0, "split": 1, "bf16": 2}
+
+
+def build_dense_adjacency(senders: torch.Tensor, receivers: torch.Tensor,
+                          edge_mask: torch.Tensor, num_nodes: int,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Dense [N, N] adjacency with A[dst, src] = multiplicity of edge src->dst.
+
+    Masked (padding) edges contribute 0. ``dtype=torch.bfloat16`` is exact:
+    the entries are small edge multiplicities."""
+    flat = receivers.long() * num_nodes + senders.long()
+    a = torch.zeros(num_nodes * num_nodes, dtype=torch.float32,
+                    device=senders.device)
+    a.index_add_(0, flat, edge_mask.to(torch.float32))
+    return a.view(num_nodes, num_nodes).to(dtype)
+
+
+def gin_aggregate_coo(h: torch.Tensor, senders: torch.Tensor,
+                      receivers: torch.Tensor, edge_mask: torch.Tensor,
+                      eps) -> torch.Tensor:
+    """Reference-semantics aggregation via gather + masked ``index_add_``."""
+    msgs = h[senders.long()] * edge_mask.to(h.dtype)[:, None]
+    agg = torch.zeros_like(h).index_add_(0, receivers.long(), msgs)
+    return agg + (1.0 + eps) * h
+
+
+def gin_aggregate_dense(h: torch.Tensor, adj: torch.Tensor, eps) -> torch.Tensor:
+    """``A @ h + (1+eps) h`` as one f32 matmul (full f32 while
+    ``torch.backends.cuda.matmul.allow_tf32`` is False, PyTorch's default)."""
+    return adj.to(torch.float32) @ h + (1.0 + eps) * h
+
+
+def spmm_reference(adj: torch.Tensor, h: torch.Tensor, eps,
+                   mode: str = "split") -> torch.Tensor:
+    """The plain version of K1-fwd: the kernel's rounding, as f32 matmuls.
+
+    ``highest`` takes f32 products; ``split`` rounds h to hi = bf16(h) and
+    lo = bf16(h - hi) and sums A·hi + A·lo; ``bf16`` takes A·bf16(h). In the
+    last two an f32 A is rounded to bf16 first (exact for an adjacency)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {list(MODES)}")
+    if mode == "highest":
+        agg = adj.to(torch.float32) @ h
+    else:
+        a = adj.to(torch.bfloat16).to(torch.float32)
+        hi = h.to(torch.bfloat16)
+        agg = a @ hi.to(torch.float32)
+        if mode == "split":
+            lo = (h - hi.to(torch.float32)).to(torch.bfloat16)
+            agg = agg + a @ lo.to(torch.float32)
+    return agg + (1.0 + eps) * h
+
+
+def gin_spmm_fwd(adj: torch.Tensor, h: torch.Tensor, eps,
+                 mode: str = "split") -> torch.Tensor:
+    """Launch K1-fwd on CUDA tensors: ``A @ h + (1+eps) h`` -> [N, F] f32.
+
+    ``adj`` [N, N] bf16 or f32, ``h`` [N, F] f32, both contiguous on one card;
+    ``eps`` a float or a 1-element f32 tensor on that card. Raises on anything
+    else, and when the kernel does not build or launch."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {list(MODES)}")
+    if h.device.type != "cuda" or adj.device != h.device:
+        raise ValueError(f"K1 needs adj and h on one CUDA device, got "
+                         f"{adj.device} and {h.device}")
+    if h.dtype != torch.float32 or adj.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K1 takes h f32 and adj bf16/f32, got {h.dtype}, {adj.dtype}")
+    n, f = h.shape
+    if adj.shape != (n, n):
+        raise ValueError(f"adj {tuple(adj.shape)} does not match h {tuple(h.shape)}")
+    if not (adj.is_contiguous() and h.is_contiguous()):
+        raise ValueError("K1 takes contiguous adj and h")
+    if not torch.is_tensor(eps):
+        eps = torch.tensor([float(eps)], dtype=torch.float32, device=h.device)
+    if eps.numel() != 1 or eps.dtype != torch.float32 or eps.device != h.device:
+        raise ValueError(f"eps must be one f32 value on {h.device}")
+    if torch.is_grad_enabled() and (h.requires_grad or eps.requires_grad):
+        raise NotImplementedError(
+            "K1's backward is not ported yet (ROADMAP queue 2, K1 bwd); run "
+            "the card path under torch.no_grad() or torch.inference_mode()")
+    eps = eps.reshape(1).contiguous()
+    out = torch.empty_like(h)
+    lib = _build.library()
+    code = lib.gin_spmm_fwd(
+        adj.data_ptr(), int(adj.dtype == torch.bfloat16), h.data_ptr(),
+        eps.data_ptr(), out.data_ptr(), n, f, MODES[mode], h.device.index,
+        torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check(code, "gin_spmm_fwd")
+    gin_spmm_fwd.launches += 1
+    return out
+
+
+gin_spmm_fwd.launches = 0
+
+
+def spmm(adj: torch.Tensor, h: torch.Tensor, eps,
+         mode: str = "split") -> torch.Tensor:
+    """``A @ h + (1+eps) h``: kernel K1-fwd for CUDA tensors, its plain
+    version ``spmm_reference`` for tensors on the CPU."""
+    if h.device.type == "cpu" and adj.device.type == "cpu":
+        return spmm_reference(adj, h, eps, mode)
+    return gin_spmm_fwd(adj, h, eps, mode)
+
+
+def gin_aggregate(h: torch.Tensor, eps, *, adj: torch.Tensor | None = None,
+                  senders: torch.Tensor | None = None,
+                  receivers: torch.Tensor | None = None,
+                  edge_mask: torch.Tensor | None = None,
+                  impl: str = "pallas") -> torch.Tensor:
+    """Dispatch between the aggregation implementations.
+
+    The dense-adjacency paths (``dense``/``pallas``, the latter being K1)
+    carry O(N²) memory; past ``DENSE_ADJACENCY_MAX_NODES`` nodes they refuse
+    to build an adjacency, before allocating it. ``coo`` works at any size."""
+    if impl == "coo":
+        return gin_aggregate_coo(h, senders, receivers, edge_mask, eps)
+    if impl == "csr":
+        raise NotImplementedError(
+            "block-CSR aggregation (K3) is not ported yet: ROADMAP queue 2")
+    if impl not in ("dense", "pallas"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if adj is None:
+        if h.shape[0] > config.DENSE_ADJACENCY_MAX_NODES:
+            raise ValueError(
+                f"dense adjacency for {h.shape[0]} nodes would be "
+                f"{h.shape[0]**2 * 2 / 2**20:.0f} MB; use impl='coo'")
+        adj = build_dense_adjacency(senders, receivers, edge_mask, h.shape[0])
+    if impl == "dense":
+        return gin_aggregate_dense(h, adj, eps)
+    return spmm(adj, h, eps)

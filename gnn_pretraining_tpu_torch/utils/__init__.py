@@ -1,0 +1,11 @@
+"""Checkpoint reading, weight conversion and device selection."""
+
+from gnn_pretraining_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    load_transfer_artifact,
+)
+from gnn_pretraining_tpu_torch.utils.convert import (
+    load_pretrained_into_finetune,
+    variables_to_state_dict,
+)
+from gnn_pretraining_tpu_torch.utils.device import resolve_device
