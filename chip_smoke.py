@@ -8,16 +8,29 @@ toolkit (nvcc). Phases, each printed as one JSON line:
 
   1. device  -- the card's name and power limit (nvidia-smi); TF32 off;
   2. build   -- compile the port's CUDA sources (build/torch_kernels/);
-  3. kernel  -- K1-fwd against its plain version in every precision mode, at
-                the serving shapes and a ragged one, bf16 and f32 adjacency;
+  3. kernel  -- K1-fwd and K1-bwd against their plain versions in every
+                precision mode, at every shape the main path gives them (the
+                serving buckets and the pads of the fine-tune loaders built
+                from the stores of phase 5) and a ragged one, bf16 and f32
+                adjacency; the autograd Function's dH and d-eps against
+                autograd through the dense f32 aggregation;
   4. slice   -- the serving path through the user's entry points: ENZYMES
                 embeddings and graph logits from the b2 transfer artifact,
                 Cora node logits and link probabilities, each counted at 5
                 K1 launches and held against the same weights on the dense
                 f32 path;
-  5. timing  -- CUDA-event medians of K1, its plain version, one PyTorch
-                call for the same function, and each serving forward;
-  6. profile -- each serving forward's device time by kernel
+  5. train   -- one fine-tune train step per cell (ENZYMES full_finetune and
+                linear_probe, Cora_NC, Cora_LP) through create_finetune_arrays
+                and make_*_steps on seeded synthetic stores of the datasets'
+                real sizes, each counted at its K1 fwd/bwd launches and held
+                (loss, gradients, post-step parameters) against a twin model
+                on the dense f32 path with the same dropout seed and the
+                same ReLU branches;
+  6. entry   -- finetune() for 2 epochs on each of the three stores;
+  7. timing  -- CUDA-event medians of K1 fwd and bwd, their plain versions,
+                one PyTorch call for the same function, each serving forward
+                and each train step;
+  8. profile -- each serving forward's and train step's device time by kernel
                 (torch.profiler) and the share of its time the card idles.
 
 Then the card's nvidia-smi line, a {"kernels": [...]} line, and last
@@ -29,9 +42,11 @@ outside a checkout.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -41,12 +56,43 @@ import torch
 HERE = Path(__file__).resolve().parent
 ARTIFACT = HERE / "artifacts" / "transfer" / "backbone_b2_42.msgpack"
 SEED = 0
-KERNEL_SHAPES = ((1056, 256), (2712, 256), (136, 40))
+# (N, F) of the serving buckets and a ragged shape; kernel_shapes() adds the
+# node pads of the fine-tune loaders, which depend on the stores.
+SERVING_SHAPES = ((1056, 256), (2712, 256))
+RAGGED_SHAPE = (136, 40)
 # Max |kernel - plain| / max |plain| per mode: tests/test_ops.py:71-90.
 KERNEL_TOL = {"highest": 1e-5, "split": 1e-3, "bf16": 5e-2}
 # Max relative error of a serving output, K1 (split) path vs dense f32 path.
 SLICE_TOL = 1e-3
 LAUNCHES_PER_FORWARD = 5            # one K1 launch per GIN layer
+# Autograd Function vs autograd through the dense f32 aggregation (highest).
+FUNCTION_TOL = 1e-5
+# Train cells: (domain, strategy) -> K1 launches (fwd, bwd) of one train step.
+# One fwd per GIN layer and forward pass (LP runs a no-grad embedding pass
+# first: 10); one bwd per layer whose input needs a gradient (ENZYMES' frozen
+# encoder spares layer 0's; a frozen backbone under a frozen encoder all 5).
+TRAIN_CELLS = {("ENZYMES", "full_finetune"): (5, 4),
+               ("ENZYMES", "linear_probe"): (5, 0),
+               ("Cora_NC", "full_finetune"): (5, 5),
+               ("Cora_LP", "full_finetune"): (10, 5)}
+ENTRY_CELLS = (("ENZYMES", "full_finetune"), ("Cora_NC", "full_finetune"),
+               ("Cora_LP", "full_finetune"))
+ENTRY_EPOCHS = 2
+# Train step on K1 (split) vs its twin on the dense f32 path: loss relative;
+# gradients as the L2 norm of the difference over the L2 norm of the model's
+# gradient (all leaves, and the head's alone), and as max |diff| over its
+# largest entry. The twin takes the ReLU branches the K1 model took
+# (utils/relu_branches.py): a pre-activation within rounding of 0 would
+# otherwise fall on either side of the kink and move every gradient below it,
+# most visibly in link prediction, whose loss reaches the model through 512
+# scored pairs only. The units where the twin's own sign said otherwise are
+# counted and printed, and may be no more than RELU_FLIP_SHARE of all units.
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_TOL = 2e-3
+RELU_FLIP_SHARE = 1e-5
+# Real sizes of the datasets the synthetic stores stand in for.
+ENZYMES_GRAPHS, ENZYMES_MEAN_NODES, ENZYMES_AVG_DEGREE = 600, 32.6, 3.8
+CORA_UNDIRECTED_EDGES, CORA_SPLIT = 5278, (140, 500, 1000)
 TIMING_REPS = 30
 WARMUP = 5
 PROFILE_REPS = 5
@@ -117,31 +163,80 @@ def random_adjacency(rng, n: int, device, dtype) -> torch.Tensor:
     return build_dense_adjacency(t(s), t(r), t(mask), n, dtype=dtype)
 
 
-def kernel_phase(device) -> dict:
-    from gnn_pretraining_tpu_torch.ops.spmm import gin_spmm_fwd, spmm_reference
+def kernel_shapes(processed_dir: Path) -> dict:
+    """(N, F) -> where the main path meets it: the serving buckets, the node
+    pad of every fine-tune loader over the stores, and a ragged shape."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.data.loaders import create_finetune_arrays
 
+    shapes = {shape: ["serving"] for shape in SERVING_SHAPES}
+    for domain in ("ENZYMES", "Cora_NC", "Cora_LP"):
+        cfg = config.FinetuneConfig(domain, "full_finetune", "b2", 42)
+        for split in ("train", "val", "test"):
+            data = create_finetune_arrays(domain, split, cfg.batch_size, processed_dir)
+            graph = data.batches[0] if domain == "ENZYMES" else data.graph
+            shapes.setdefault((graph.num_nodes, 256), []).append(f"{domain}/{split}")
+    shapes.setdefault(RAGGED_SHAPE, []).append("ragged")
+    emit({"phase": "kernel", "shapes": [{"n": n, "f": f, "of": of}
+                                        for (n, f), of in shapes.items()]})
+    return shapes
+
+
+def kernel_phase(device, shapes) -> dict:
+    from gnn_pretraining_tpu_torch.ops.spmm import (
+        gin_aggregate_dense,
+        gin_spmm_bwd,
+        gin_spmm_fwd,
+        spmm,
+        spmm_bwd_reference,
+        spmm_reference,
+    )
+
+    pairs = {"gin_spmm_fwd": (gin_spmm_fwd, spmm_reference),
+             "gin_spmm_bwd": (gin_spmm_bwd, spmm_bwd_reference)}
     rng = np.random.default_rng(SEED)
     errors = {}
-    for n, f in KERNEL_SHAPES:
+    for n, f in shapes:
         h = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(device)
         eps = torch.tensor([-0.2], device=device)
         for dtype in (torch.bfloat16, torch.float32):
             adj = random_adjacency(rng, n, device, dtype)
             for mode, tol in KERNEL_TOL.items():
-                out = gin_spmm_fwd(adj, h, eps, mode)
-                ref = spmm_reference(adj, h, eps, mode)
-                torch.cuda.synchronize()
-                abs_err = float((out - ref).abs().max())
-                rel = abs_err / float(ref.abs().max())
-                ok = bool(rel <= tol and torch.isfinite(out).all())
-                emit({"phase": "kernel", "kernel": "gin_spmm_fwd", "n": n,
-                      "f": f, "adj": str(dtype).replace("torch.", ""),
-                      "mode": mode, "max_abs_err": abs_err, "max_rel_err": rel,
-                      "tol": tol, "ok": ok})
-                if not ok:
-                    raise AssertionError(f"K1 {mode} at ({n},{f}) {dtype}: "
-                                         f"relative error {rel} > {tol}")
-                errors[(n, f, dtype, mode)] = abs_err
+                for name, (kernel, plain) in pairs.items():
+                    out = kernel(adj, h, eps, mode)
+                    ref = plain(adj, h, eps, mode)
+                    torch.cuda.synchronize()
+                    abs_err = float((out - ref).abs().max())
+                    rel = abs_err / float(ref.abs().max())
+                    ok = bool(rel <= tol and torch.isfinite(out).all())
+                    emit({"phase": "kernel", "kernel": name, "n": n, "f": f,
+                          "adj": str(dtype).replace("torch.", ""), "mode": mode,
+                          "max_abs_err": abs_err, "max_rel_err": rel,
+                          "tol": tol, "ok": ok})
+                    if not ok:
+                        raise AssertionError(f"{name} {mode} at ({n},{f}) {dtype}: "
+                                             f"relative error {rel} > {tol}")
+                    errors[(name, n, f, dtype, mode)] = abs_err
+
+        # The Function's wiring: dH from K1-bwd, d-eps from the reduction.
+        adj = random_adjacency(rng, n, device, torch.bfloat16)
+        up = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(device)
+        grads = []
+        for aggregate in (lambda h_, e_: spmm(adj, h_, e_, "highest"),
+                          lambda h_, e_: gin_aggregate_dense(h_, adj, e_)):
+            h_, e_ = h.clone().requires_grad_(), eps.clone().requires_grad_()
+            aggregate(h_, e_).backward(up.t().contiguous().t())   # a strided gradient
+            grads.append((h_.grad, e_.grad))
+        torch.cuda.synchronize()
+        (dh, de), (dh_ref, de_ref) = grads
+        rel_h = float((dh - dh_ref).abs().max() / dh_ref.abs().max())
+        rel_e = float((de - de_ref).abs().max() / de_ref.abs().max())
+        ok = rel_h <= FUNCTION_TOL and rel_e <= FUNCTION_TOL
+        emit({"phase": "kernel", "function": "spmm", "n": n, "f": f,
+              "dh_max_rel_err": rel_h, "deps_max_rel_err": rel_e,
+              "tol": FUNCTION_TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"spmm Function at ({n},{f}): dH {rel_h}, d-eps {rel_e}")
     return errors
 
 
@@ -228,7 +323,7 @@ def slice_phase(device):
     enz, cora, score = serving_inputs(device)
     forwards = serving_forwards(models, enz, cora, score)
 
-    gin_spmm_fwd.launches = 0          # the main path's run, and only it
+    gin_spmm_fwd.launches = 0          # the serving path's run, and only it
     outputs, launches = {}, {}
     for name, fwd in forwards.items():
         before = gin_spmm_fwd.launches
@@ -260,6 +355,181 @@ def slice_phase(device):
     return forwards, enz, cora, main_path_launches
 
 
+def write_stores(processed_dir: Path) -> dict:
+    """Seeded synthetic stores at the real datasets' sizes, through
+    GraphStore.save: ENZYMES (600 graphs of ~33 nodes, x dim 21, 6 classes)
+    and Cora (2708 nodes, 10556 directed edges, x dim 1433, 7 classes, node
+    split 140/500/1000, edge split 80/10/10)."""
+    from gnn_pretraining_tpu_torch.data.synthetic import (
+        synthetic_graph_store,
+        synthetic_planetoid_stores,
+    )
+
+    rng = np.random.default_rng(SEED + 2)
+    sizes = np.clip(rng.poisson(ENZYMES_MEAN_NODES, ENZYMES_GRAPHS), 2, 126)
+    stores = {"ENZYMES": synthetic_graph_store("ENZYMES", rng, sizes,
+                                               ENZYMES_AVG_DEGREE)}
+    stores.update(synthetic_planetoid_stores("Cora", rng, CORA_NODES,
+                                             CORA_UNDIRECTED_EDGES, *CORA_SPLIT))
+    sizes = {}
+    for name, store in stores.items():
+        store.save(processed_dir / f"{name}.npz")
+        sizes[name] = {"graphs": store.num_graphs,
+                       "nodes": int(store.node_offsets[-1]),
+                       "directed_edges": int(store.edge_offsets[-1])}
+        if "train_pos" in store.splits:
+            sizes[name]["train_edges"] = int(store.splits["train_pos"].shape[1])
+    emit({"phase": "train", "stores": sizes})
+    return sizes
+
+
+def train_cell(domain: str, strategy: str, processed_dir: Path, device):
+    """One train step of the cell on K1, checked against its dense twin.
+    Returns (name, step, batch): step() runs one more train step on K1 and
+    batch is the padded graph whose adjacency K1 was given."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.data.loaders import create_finetune_arrays
+    from gnn_pretraining_tpu_torch.finetune import finetune as ft
+    from gnn_pretraining_tpu_torch.ops.spmm import gin_spmm_bwd, gin_spmm_fwd
+    from gnn_pretraining_tpu_torch.utils import relu_branches
+
+    cfg = config.FinetuneConfig(domain, strategy, "b2", 42)
+    data = {"train": create_finetune_arrays(domain, "train", cfg.batch_size,
+                                            processed_dir)}
+    sides = {}
+    for aggregation in ("pallas", "dense"):
+        model = ft.build_finetune_model(cfg, aggregation, device)
+        if sides:
+            model.load_state_dict(sides["pallas"][0].state_dict())
+        model.seed_dropout(SEED)
+        optimizer, labels, lrs = ft.create_finetune_optimizer(model, cfg)
+        train, _, batches, _ = ft.build_steps(cfg, model, optimizer, labels, data, device)
+        sides[aggregation] = (model, train, next(iter(batches()))[1], labels, lrs)
+
+    model, train, args, labels, lrs = sides["pallas"]
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    fwd0, bwd0 = gin_spmm_fwd.launches, gin_spmm_bwd.launches
+    with relu_branches.record(model) as branches:
+        out = train(*args)
+    launched = (gin_spmm_fwd.launches - fwd0, gin_spmm_bwd.launches - bwd0)
+    twin, twin_train, twin_args, _, _ = sides["dense"]
+    extra = ({"negatives": train.last_negatives}
+             if cfg.task_type == "link_prediction" else {})
+    with relu_branches.replay(twin, branches) as flips:
+        twin_out = twin_train(*twin_args, **extra)
+    units = sum(b.numel() for b in branches)
+    if (gin_spmm_fwd.launches - fwd0, gin_spmm_bwd.launches - bwd0) != launched:
+        raise AssertionError("the dense twin launched K1")
+    torch.cuda.synchronize()
+
+    loss, twin_loss = float(out[0]), float(twin_out[0])
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    twin_grads = {n: p.grad for n, p in twin.named_parameters() if p.grad is not None}
+    if grads.keys() != twin_grads.keys():
+        raise AssertionError(f"{domain}/{strategy}: K1 and dense train other leaves")
+    g_max = max(float(g.abs().max()) for g in twin_grads.values())
+    g_err = max(float((grads[n] - twin_grads[n]).abs().max()) for n in grads)
+
+    def l2_err(prefix=""):
+        """||g - g_twin|| / ||g_twin|| over the leaves under ``prefix``."""
+        names = [n for n in grads if n.startswith(prefix)]
+        ref = math.sqrt(sum(float(twin_grads[n].double().pow(2).sum()) for n in names))
+        err = math.sqrt(sum(float((grads[n] - twin_grads[n]).double().pow(2).sum())
+                            for n in names))
+        return err / ref
+
+    g_l2_err, head_l2_err = l2_err(), l2_err("classification_head")
+    # AdamW moves an element by ~lr whatever its gradient's size, so where the
+    # gradient is rounding noise (a bias in front of a BatchNorm) the two sides
+    # may part by up to 2 lr; where it is clear (> 1e-3 of the largest entry)
+    # the mean distance must stay under 0.05 lr.
+    moved, p_err_sum, clear_count = 0.0, 0.0, 0
+    params, twin_params = dict(model.named_parameters()), dict(twin.named_parameters())
+    with torch.no_grad():
+        for n, group in labels.items():
+            if group == "frozen":
+                if not torch.equal(params[n], start[n]):
+                    raise AssertionError(f"frozen leaf {n} moved")
+                continue
+            lr = lrs[group]
+            dist = (params[n] - twin_params[n]).abs() / lr
+            if float(dist.max()) > 2.02:
+                raise AssertionError(f"{n}: K1 and dense parameters part by more than 2 lr")
+            clear = twin_grads[n].abs() > 1e-3 * g_max
+            p_err_sum += float(dist[clear].sum())
+            clear_count += int(clear.sum())
+            moved = max(moved, float((params[n] - start[n]).abs().max()) / lr)
+    p_err = p_err_sum / max(clear_count, 1)
+    stats_moved = any(not torch.equal(v, start[k]) for k, v in model.state_dict().items()
+                      if k.endswith("running_mean"))
+    name = f"{domain}/{strategy}"
+    batch = (data["train"].batches[0] if cfg.task_type == "graph_classification"
+             else data["train"].graph)
+    ok = bool(launched == TRAIN_CELLS[(domain, strategy)] and math.isfinite(loss)
+              and abs(loss - twin_loss) <= TRAIN_LOSS_TOL * abs(twin_loss)
+              and g_err <= TRAIN_GRAD_TOL * g_max and g_l2_err <= TRAIN_GRAD_TOL
+              and head_l2_err <= TRAIN_GRAD_TOL
+              and sum(flips) <= RELU_FLIP_SHARE * units
+              and p_err <= 0.05
+              and clear_count > 100 and moved > 0.5 and stats_moved)
+    emit({"phase": "train", "cell": name, "k1_nodes_pad": batch.num_nodes,
+          "k1_launches_fwd_bwd": list(launched),
+          "expected": list(TRAIN_CELLS[(domain, strategy)]), "loss": loss,
+          "loss_dense": twin_loss, "grad_max_err_over_max": g_err / g_max,
+          "grad_l2_err_over_l2": g_l2_err,
+          "head_grad_l2_err_over_l2": head_l2_err, "grad_tol": TRAIN_GRAD_TOL,
+          "relu_units": units, "relu_flips_replayed": sum(flips),
+          "param_mean_err_over_lr": p_err,
+          "params_with_clear_grad": clear_count, "param_moved_over_lr": moved,
+          "trainable_leaves": len(grads), "ok": ok})
+    if not ok:
+        raise AssertionError(f"train step {name} failed its checks")
+    return name, (lambda: train(*args)), batch.to(device)
+
+
+def train_phase(device, processed_dir: Path):
+    """name -> step() and name -> the step's padded graph, per train cell."""
+    cells = [train_cell(domain, strategy, processed_dir, device)
+             for domain, strategy in TRAIN_CELLS]
+    return ({name: step for name, step, _ in cells},
+            {name: batch for name, _, batch in cells})
+
+
+def entry_phase(processed_dir: Path, out_root: Path) -> None:
+    """finetune() end to end: finite losses, the metric keys, the best
+    checkpoint on disk and reloaded for the test pass."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.finetune.finetune import finetune
+    from gnn_pretraining_tpu_torch.utils.checkpoint import load_checkpoint
+
+    for domain, strategy in ENTRY_CELLS:
+        cfg = config.FinetuneConfig(domain, strategy, "b2", 42)
+        t0 = time.perf_counter()
+        result = finetune(cfg, aggregation="pallas", processed_dir=processed_dir,
+                          epochs=ENTRY_EPOCHS, out_root=out_root)
+        seconds = time.perf_counter() - t0
+        log = out_root / "metrics" / config.FINETUNE_PROJECT_NAME / f"{cfg.run_name}.jsonl"
+        rows = [json.loads(line) for line in open(log)]
+        losses = [v for r in rows for k, v in r.items() if k.endswith("/loss")]
+        ckpt = load_checkpoint(out_root / "finetune" / f"model_{cfg.run_name}.msgpack")
+        sel = "val/auc" if cfg.task_type == "link_prediction" else "val/accuracy"
+        keys = {"test/accuracy", "test/f1", "test/auc", "test/auc_global", "test/loss",
+                "test/convergence_epochs", "test/total_parameters",
+                "test/trainable_parameters", "test/steps_per_sec"}
+        ok = bool(keys <= result.keys() and losses and np.isfinite(losses).all()
+                  and any(sel in r for r in rows)
+                  and any("train/gradients/model_grad_norm" in r for r in rows)
+                  and ckpt["meta"]["epoch"] == result["test/convergence_epochs"]
+                  and 1 <= ckpt["meta"]["epoch"] <= ENTRY_EPOCHS)
+        emit({"phase": "entry", "cell": cfg.run_name, "seconds": seconds,
+              "train_steps": sum("train/loss" in r for r in rows),
+              "best_epoch": ckpt["meta"]["epoch"], "test_loss": result["test/loss"],
+              "test_accuracy": result["test/accuracy"],
+              "steps_per_sec": result["test/steps_per_sec"], "ok": ok})
+        if not ok:
+            raise AssertionError(f"finetune() on {cfg.run_name} failed its checks")
+
+
 def median_ms(fn) -> float:
     for _ in range(WARMUP):
         fn()
@@ -285,79 +555,118 @@ def k1_bound(n: int, f: int, adj_bytes: int) -> dict:
             "operations": ops, "bytes": nbytes}
 
 
-def timing_phase(device, forwards, enz, cora, errors, launches):
+KERNEL_ROWS = {
+    "gin_spmm_fwd": {"replaces": "gnn_pretraining_tpu/ops/spmm.py:86",
+                     "library_call": "torch.addmm(h, adj_f32, h, beta=1+eps)"},
+    "gin_spmm_bwd": {"replaces": "gnn_pretraining_tpu/ops/spmm.py:190",
+                     "library_call": "torch.addmm(g, adj_f32.t(), g, beta=1+eps)"},
+}
+
+
+def timing_phase(device, forwards, steps, timed, errors, launches):
+    """``timed``: (where the path meets the shape, its padded graph, the
+    kernels the path launches at that shape); the last is the main row."""
     from gnn_pretraining_tpu_torch.ops.spmm import (
         build_dense_adjacency,
+        gin_spmm_bwd,
         gin_spmm_fwd,
+        spmm_bwd_reference,
         spmm_reference,
     )
 
     rng = np.random.default_rng(SEED + 1)
-    entries = []
-    for batch in (enz, cora["NC"]):
+    entries = {name: [] for name in KERNEL_ROWS}
+    for of, batch, launched_here in timed:
         n, f = batch.num_nodes, 256
         adj = build_dense_adjacency(batch.senders, batch.receivers,
                                     batch.edge_mask, n, dtype=torch.bfloat16)
         adj_f32 = adj.float()          # made outside the timed call
+        adj_f32_t = adj_f32.t()        # a view: addmm reads A in place too
         h = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(device)
         eps = torch.tensor([0.1], device=device)
         beta = 1.0 + 0.1
-        row = {"n": n, "f": f, "mode": "split", "adj": "bfloat16",
-               "ms": median_ms(lambda: gin_spmm_fwd(adj, h, eps, "split")),
-               "plain_ms": median_ms(lambda: spmm_reference(adj, h, eps, "split")),
-               "library_ms": median_ms(lambda: torch.addmm(h, adj_f32, h, beta=beta)),
-               "library_call": "torch.addmm(h, adj_f32, h, beta=1+eps)",
-               **k1_bound(n, f, adj.element_size())}
-        emit({"phase": "timing", "kernel": "gin_spmm_fwd", **row})
-        entries.append(row)
+        calls = {
+            "gin_spmm_fwd": (lambda: gin_spmm_fwd(adj, h, eps, "split"),
+                             lambda: spmm_reference(adj, h, eps, "split"),
+                             lambda: torch.addmm(h, adj_f32, h, beta=beta)),
+            "gin_spmm_bwd": (lambda: gin_spmm_bwd(adj, h, eps, "split"),
+                             lambda: spmm_bwd_reference(adj, h, eps, "split"),
+                             lambda: torch.addmm(h, adj_f32_t, h, beta=beta)),
+        }
+        for name in launched_here:
+            kernel, plain, library = calls[name]
+            row = {"n": n, "f": f, "of": of, "mode": "split", "adj": "bfloat16",
+                   "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+                   "library_ms": median_ms(library),
+                   "library_call": KERNEL_ROWS[name]["library_call"],
+                   **k1_bound(n, f, adj.element_size())}
+            emit({"phase": "timing", "kernel": name, **row})
+            entries[name].append(row)
     forward_ms = {}
     for name, fwd in forwards.items():
         forward_ms[name] = median_ms(fwd)
         emit({"phase": "timing", "forward": name, "ms": forward_ms[name]})
+    step_ms = {}
+    for name, step in steps.items():
+        step_ms[name] = median_ms(step)
+        emit({"phase": "timing", "train_step": name, "ms": step_ms[name]})
 
-    main = entries[-1]                 # the Cora shape, the larger of the two
-    n = main["n"]
-    return forward_ms, [{
-        "name": "gin_spmm_fwd", "route": "cuda",
-        "source": "gnn_pretraining_tpu_torch/csrc/gin_spmm.cu",
-        "replaces": "gnn_pretraining_tpu/ops/spmm.py:86",
-        "launches": launches,
-        "max_abs_err": errors[(n, 256, torch.bfloat16, "split")],
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-        "at": {"n": n, "f": 256, "mode": "split", "adj": "bfloat16"},
-        "also": [{k: e[k] for k in ("n", "ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by")}
-                 for e in entries[:-1]],
-    }]
+    kernels = []
+    for name, rows in entries.items():
+        main = rows[-1]                # the Cora shape, the larger of the two
+        n = main["n"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "gnn_pretraining_tpu_torch/csrc/gin_spmm.cu",
+            "replaces": KERNEL_ROWS[name]["replaces"],
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name],
+            "max_abs_err": errors[(name, n, 256, torch.bfloat16, "split")],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "at": {"n": n, "f": 256, "of": main["of"], "mode": "split",
+                   "adj": "bfloat16"},
+            "also": [{**{k: e[k] for k in ("n", "of", "ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")},
+                      "max_abs_err": errors[(name, e["n"], 256, torch.bfloat16, "split")]}
+                     for e in rows[:-1]],
+        })
+    return {**forward_ms, **step_ms}, kernels
 
 
-def profile_phase(forwards, forward_ms) -> None:
-    """Where a serving forward's time goes: device time by kernel from
-    torch.profiler over PROFILE_REPS forwards, and the idle share of the
-    forward's CUDA-event time (timing phase) that no kernel covers."""
+def profile_phase(calls, event_ms) -> None:
+    """Where a serving forward's or a train step's time goes: device time by
+    kernel from torch.profiler over PROFILE_REPS calls, and the idle share of
+    the call's CUDA-event time (timing phase) that no kernel covers."""
     from torch.profiler import ProfilerActivity, profile
 
-    for name, fwd in forwards.items():
-        fwd()
+    for name, call in calls.items():
+        call()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILE_REPS):
-                fwd()
+                call()
             torch.cuda.synchronize()
         kernels = sorted(
             ((e.key, e.self_device_time_total / PROFILE_REPS / 1e3, e.count // PROFILE_REPS)
              for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA),
+             # Kernels and copies only: an annotated range such as the
+             # optimizer's step shows on the device timeline too, and would
+             # count the kernels under it a second time.
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)
+             and not e.key.startswith("Optimizer.")),
             key=lambda k: -k[1])
         busy = sum(ms for _, ms, _ in kernels)
-        k1 = sum(ms for key, ms, _ in kernels if "gin_spmm_fwd" in key)
-        emit({"phase": "profile", "forward": name, "event_ms": forward_ms[name],
+        k1 = {d: sum(ms for key, ms, _ in kernels if f"gin_spmm_{d}_kernel" in key)
+              for d in ("fwd", "bwd")}
+        emit({"phase": "profile", "call": name, "event_ms": event_ms[name],
               "device_busy_ms": busy if kernels else None,
-              "k1_device_ms": k1 if kernels else None,
-              "idle_share": 1 - busy / forward_ms[name] if kernels else None,
-              "kernels_per_forward": sum(c for _, _, c in kernels),
+              "k1_fwd_device_ms": k1["fwd"] if kernels else None,
+              "k1_bwd_device_ms": k1["bwd"] if kernels else None,
+              "idle_share": 1 - busy / event_ms[name] if kernels else None,
+              "kernels_per_call": sum(c for _, _, c in kernels),
               "top": [[key[:60], ms, c] for key, ms, c in kernels[:6]]})
 
 
@@ -365,13 +674,32 @@ def main() -> int:
     t0 = time.perf_counter()
     card = device_phase()
     import_port()
+    from gnn_pretraining_tpu_torch.ops.spmm import gin_spmm_bwd, gin_spmm_fwd
+
     build_phase()
     device = torch.device("cuda")
-    errors = kernel_phase(device)
-    forwards, enz, cora, launches = slice_phase(device)
-    forward_ms, kernels = timing_phase(device, forwards, enz, cora, errors,
-                                       launches)
-    profile_phase(forwards, forward_ms)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        processed_dir, out_root = Path(tmp) / "processed", Path(tmp) / "out"
+        processed_dir.mkdir()
+        write_stores(processed_dir)
+        errors = kernel_phase(device, kernel_shapes(processed_dir))
+        forwards, enz, cora, serving_launches = slice_phase(device)
+        gin_spmm_fwd.launches = gin_spmm_bwd.launches = 0   # the train path's run
+        steps, train_graphs = train_phase(device, processed_dir)
+        entry_phase(processed_dir, out_root)
+        train_launches = (gin_spmm_fwd.launches, gin_spmm_bwd.launches)
+    launches = {"gin_spmm_fwd": {"serving": serving_launches, "train": train_launches[0]},
+                "gin_spmm_bwd": {"serving": 0, "train": train_launches[1]}}
+    if min(serving_launches, *train_launches) < 1:
+        raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    calls = {**forwards, **steps}
+    both = ("gin_spmm_fwd", "gin_spmm_bwd")
+    timed = (("ENZYMES serving bucket", enz, both[:1]),
+             ("ENZYMES train batch", train_graphs["ENZYMES/full_finetune"], both),
+             ("Cora full graph", cora["NC"], both))
+    event_ms, kernels = timing_phase(device, forwards, steps, timed, errors,
+                                     launches)
+    profile_phase(calls, event_ms)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -1,8 +1,15 @@
-// K1-fwd: the GIN aggregation  out = A @ H + (1 + eps) * H  on Hopper.
+// K1: the GIN aggregation on Hopper, forward and backward.
 //
-// Replaces gnn_pretraining_tpu/ops/spmm.py:_spmm_kernel (the forward,
-// transpose_a=False), which _spmm_fwd_impl drives through pl.pallas_call.
-// The transposed variant (the backward) is not here yet.
+//   K1-fwd  out = A  @ H + (1 + eps) * H     (gin_spmm_fwd)
+//   K1-bwd  dH  = A^T @ G + (1 + eps) * G    (gin_spmm_bwd)
+//
+// Replaces gnn_pretraining_tpu/ops/spmm.py:_spmm_kernel, which
+// _spmm_fwd_impl drives through pl.pallas_call: with transpose_a=False for
+// the forward, and with transpose_a=True (the A block spec (bk, bm), (k, i)
+// and the dot_general contraction over A's rows) for the backward that
+// _spmm_bwd asks for. Both directions share one tile routine here; the
+// backward reads A's tile through transposed indices and never makes a
+// transposed copy of A.
 //
 // Operands: A [N,N] row-major, bf16 (as the serving and fine-tune paths
 // build it; exact, its entries are small edge multiplicities) or f32;
@@ -60,11 +67,13 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 
-template <typename TA, int MODE>
-__global__ void __launch_bounds__(THREADS)
-gin_spmm_fwd_kernel(const TA* __restrict__ adj, const float* __restrict__ h,
-                    const float* __restrict__ eps, float* __restrict__ out,
-                    int n, int f) {
+// One block's work, shared by the two kernels below: TRANS = false is the
+// forward, TRANS = true the backward (h is then the upstream gradient).
+template <typename TA, int MODE, bool TRANS>
+__device__ __forceinline__ void
+gin_spmm_tile(const TA* __restrict__ adj, const float* __restrict__ h,
+              const float* __restrict__ eps, float* __restrict__ out,
+              int n, int f) {
   __shared__ float a_s[BM][BK + 1];               // +1: no bank conflicts
   __shared__ float hi_s[BK][BN];
   __shared__ float lo_s[MODE == kSplit ? BK : 1][BN];
@@ -83,11 +92,15 @@ gin_spmm_fwd_kernel(const TA* __restrict__ adj, const float* __restrict__ h,
 
   for (int k0 = 0; k0 < n; k0 += BK) {
     for (int idx = tid; idx < BM * BK; idx += THREADS) {
-      const int r = idx / BK, c = idx % BK;
+      // r: output row in the tile, c: position in the contraction slice.
+      // The thread index runs along whichever of the two is A's column.
+      const int r = TRANS ? idx % BM : idx / BK;
+      const int c = TRANS ? idx / BM : idx % BK;
       const int gr = row0 + r, gc = k0 + c;
       float v = 0.f;
       if (gr < n && gc < n) {
-        v = to_float(adj[static_cast<size_t>(gr) * n + gc]);
+        v = to_float(TRANS ? adj[static_cast<size_t>(gc) * n + gr]
+                           : adj[static_cast<size_t>(gr) * n + gc]);
         if constexpr (MODE != kHighest && std::is_same<TA, float>::value) {
           v = round_bf16(v);
         }
@@ -147,25 +160,67 @@ gin_spmm_fwd_kernel(const TA* __restrict__ adj, const float* __restrict__ h,
   }
 }
 
-template <typename TA>
+template <typename TA, int MODE>
+__global__ void __launch_bounds__(THREADS)
+gin_spmm_fwd_kernel(const TA* __restrict__ adj, const float* __restrict__ h,
+                    const float* __restrict__ eps, float* __restrict__ out,
+                    int n, int f) {
+  gin_spmm_tile<TA, MODE, false>(adj, h, eps, out, n, f);
+}
+
+template <typename TA, int MODE>
+__global__ void __launch_bounds__(THREADS)
+gin_spmm_bwd_kernel(const TA* __restrict__ adj, const float* __restrict__ g,
+                    const float* __restrict__ eps, float* __restrict__ dh,
+                    int n, int f) {
+  gin_spmm_tile<TA, MODE, true>(adj, g, eps, dh, n, f);
+}
+
+template <typename TA, int MODE, bool TRANS>
+void launch_mode(const TA* adj, const float* h, const float* eps, float* out,
+                 int n, int f, cudaStream_t stream) {
+  const dim3 grid((f + BN - 1) / BN, (n + BM - 1) / BM);
+  if constexpr (TRANS) {
+    gin_spmm_bwd_kernel<TA, MODE><<<grid, THREADS, 0, stream>>>(
+        adj, h, eps, out, n, f);
+  } else {
+    gin_spmm_fwd_kernel<TA, MODE><<<grid, THREADS, 0, stream>>>(
+        adj, h, eps, out, n, f);
+  }
+}
+
+template <typename TA, bool TRANS>
 void launch(const void* adj, const float* h, const float* eps, float* out,
             int n, int f, int mode, cudaStream_t stream) {
-  const dim3 grid((f + BN - 1) / BN, (n + BM - 1) / BM);
   const TA* a = static_cast<const TA*>(adj);
   switch (mode) {
     case kHighest:
-      gin_spmm_fwd_kernel<TA, kHighest><<<grid, THREADS, 0, stream>>>(
-          a, h, eps, out, n, f);
+      launch_mode<TA, kHighest, TRANS>(a, h, eps, out, n, f, stream);
       break;
     case kSplit:
-      gin_spmm_fwd_kernel<TA, kSplit><<<grid, THREADS, 0, stream>>>(
-          a, h, eps, out, n, f);
+      launch_mode<TA, kSplit, TRANS>(a, h, eps, out, n, f, stream);
       break;
     default:
-      gin_spmm_fwd_kernel<TA, kBf16><<<grid, THREADS, 0, stream>>>(
-          a, h, eps, out, n, f);
+      launch_mode<TA, kBf16, TRANS>(a, h, eps, out, n, f, stream);
       break;
   }
+}
+
+template <bool TRANS>
+int run(const void* adj, int adj_is_bf16, const float* h, const float* eps,
+        float* out, int n, int f, int mode, int device, void* stream) {
+  if (mode < kHighest || mode > kBf16 || n <= 0 || f <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (adj_is_bf16) {
+    launch<__nv_bfloat16, TRANS>(adj, h, eps, out, n, f, mode, s);
+  } else {
+    launch<float, TRANS>(adj, h, eps, out, n, f, mode, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -175,18 +230,15 @@ void launch(const void* adj, const float* h, const float* eps, float* out,
 extern "C" int gin_spmm_fwd(const void* adj, int adj_is_bf16, const float* h,
                             const float* eps, float* out, int n, int f,
                             int mode, int device, void* stream) {
-  if (mode < kHighest || mode > kBf16 || n <= 0 || f <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (adj_is_bf16) {
-    launch<__nv_bfloat16>(adj, h, eps, out, n, f, mode, s);
-  } else {
-    launch<float>(adj, h, eps, out, n, f, mode, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run<false>(adj, adj_is_bf16, h, eps, out, n, f, mode, device, stream);
+}
+
+// Launches K1-bwd: dh = A^T @ g + (1 + eps) * g, same arguments with the
+// upstream gradient g [N,F] in h's place; A is read in place.
+extern "C" int gin_spmm_bwd(const void* adj, int adj_is_bf16, const float* g,
+                            const float* eps, float* dh, int n, int f,
+                            int mode, int device, void* stream) {
+  return run<true>(adj, adj_is_bf16, g, eps, dh, n, f, mode, device, stream);
 }
 
 extern "C" const char* gin_kernels_error_string(int code) {

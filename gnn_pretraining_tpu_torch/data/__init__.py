@@ -7,3 +7,9 @@ from gnn_pretraining_tpu_torch.data.batch import (
     pad_to,
     round_up,
 )
+from gnn_pretraining_tpu_torch.data.loaders import (
+    GraphClassificationData,
+    LinkPredictionData,
+    NodeClassificationData,
+    create_finetune_arrays,
+)

@@ -86,6 +86,29 @@ class GraphStore:
     def num_graphs(self) -> int:
         return len(self.node_offsets) - 1
 
+    def graph_num_edges(self, i: int) -> int:
+        return int(self.edge_offsets[i + 1] - self.edge_offsets[i])
+
+    def save(self, path) -> None:
+        """Write the ``.npz`` layout that ``load`` (here and in the JAX
+        package) reads."""
+        arrays = {
+            "node_features": self.node_features,
+            "edge_index": self.edge_index,
+            "node_offsets": self.node_offsets,
+            "edge_offsets": self.edge_offsets,
+            "y": self.y,
+        }
+        if self.graph_properties is not None:
+            arrays["graph_properties"] = self.graph_properties
+        if self.node_y is not None:
+            arrays["node_y"] = self.node_y
+        for k, v in self.splits.items():
+            arrays[f"split__{k}"] = v
+        for k, v in self.meta.items():
+            arrays[f"meta__{k}"] = np.array(str(v))
+        np.savez_compressed(path, name=np.array(self.name), **arrays)
+
     @classmethod
     def load(cls, path) -> "GraphStore":
         z = np.load(path, allow_pickle=False)

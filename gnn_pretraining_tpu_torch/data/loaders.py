@@ -1,0 +1,133 @@
+"""Fine-tune loaders producing padded GraphBatches.
+
+Port of the fine-tune half of ``gnn_pretraining_tpu/data/loaders.py``
+(reference src/data/finetune_data_loaders.py:68-114): dispatch on task type,
+no shuffling, one fixed padded shape per loader. The arrays equal the JAX
+package's for the same store. The pretraining sampler is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from gnn_pretraining_tpu_torch import config
+from gnn_pretraining_tpu_torch.data.batch import (
+    GraphBatch,
+    GraphStore,
+    build_batch,
+    round_up,
+)
+
+
+def _batch_pads(store: GraphStore, graph_indices: Sequence[int], batch_size: int
+                ) -> Tuple[int, int]:
+    """Fixed (n_pad, e_pad) covering every consecutive batch of the index list."""
+    nn = np.diff(store.node_offsets)[graph_indices]
+    ne = np.diff(store.edge_offsets)[graph_indices]
+    max_n = max_e = 0
+    for i in range(0, len(graph_indices), batch_size):
+        max_n = max(max_n, int(nn[i:i + batch_size].sum()))
+        max_e = max(max_e, int(ne[i:i + batch_size].sum()))
+    return round_up(max(max_n, 1)), round_up(max(max_e, 1))
+
+
+@dataclasses.dataclass
+class GraphClassificationData:
+    """Unshuffled padded batches over a split (ref loader :68-76)."""
+    batches: List[GraphBatch]
+
+
+@dataclasses.dataclass
+class NodeClassificationData:
+    """One full graph + per-batch node-index/label arrays (ref loader :79-92)."""
+    graph: GraphBatch
+    node_indices: List[np.ndarray]   # [B] per batch
+    labels: List[np.ndarray]         # [B] per batch
+
+
+@dataclasses.dataclass
+class LinkPredictionData:
+    """One full graph + per-batch edge/label arrays (ref loader :95-103).
+
+    ``train_edges`` are the positive train edges — the message-passing graph
+    for every LP (and LP-domain NC) forward (reference: finetune.py:166,187).
+    """
+    graph: GraphBatch
+    edges: List[np.ndarray]          # [2, B] per batch
+    labels: List[np.ndarray]         # [B] per batch
+    edge_mask: List[np.ndarray]      # [B] validity per batch (last may be ragged)
+    train_edges: np.ndarray          # [2, E_train]
+
+
+def _single_graph_batch(store: GraphStore,
+                        message_passing_edges: Optional[np.ndarray] = None
+                        ) -> GraphBatch:
+    """The full (single) graph as a padded batch, optionally with its edge set
+    replaced (NC/LP propagate over train edges only, ref finetune.py:166-187)."""
+    n = int(store.node_offsets[1])
+    if message_passing_edges is not None:
+        ei = np.asarray(message_passing_edges, np.int64)
+        sub = GraphStore(name=store.name, node_features=store.node_features,
+                         edge_index=ei.astype(np.int32),
+                         node_offsets=store.node_offsets,
+                         edge_offsets=np.array([0, ei.shape[1]], np.int64),
+                         y=store.y, splits=store.splits, node_y=store.node_y)
+        return build_batch(sub, [0], round_up(n), round_up(max(ei.shape[1], 1)), 1)
+    return build_batch(store, [0], round_up(n),
+                       round_up(max(store.graph_num_edges(0), 1)), 1)
+
+
+def create_finetune_arrays(domain_name: str, split: str, batch_size: int,
+                           processed_dir=None):
+    processed_dir = Path(processed_dir) if processed_dir else config.PROCESSED_DIR
+    store = GraphStore.load(processed_dir / f"{domain_name}.npz")
+    task_type = config.TASK_TYPES[domain_name]
+
+    if task_type == "graph_classification":
+        idx = np.asarray(store.splits[split], np.int64)
+        n_pad, e_pad = _batch_pads(store, idx, batch_size)
+        batches = [build_batch(store, idx[i:i + batch_size], n_pad, e_pad, batch_size)
+                   for i in range(0, len(idx), batch_size)]
+        return GraphClassificationData(batches=batches)
+
+    if task_type == "node_classification":
+        idx = np.asarray(store.splits[split], np.int64)
+        bs = len(idx) if batch_size == -1 else batch_size
+        graph = _single_graph_batch(store)
+        node_indices = [idx[i:i + bs].astype(np.int32) for i in range(0, len(idx), bs)]
+        labels = [np.asarray(store.node_y)[ix].astype(np.int32) for ix in node_indices]
+        return NodeClassificationData(graph=graph, node_indices=node_indices,
+                                      labels=labels)
+
+    if task_type == "link_prediction":
+        train_pos = np.asarray(store.splits["train_pos"], np.int64)
+        if split == "train":
+            edges_all = train_pos
+            labels_all = np.ones(edges_all.shape[1], np.float32)
+        else:
+            pos = np.asarray(store.splits[f"{split}_pos"], np.int64)
+            neg = np.asarray(store.splits[f"{split}_neg"], np.int64)
+            edges_all = np.concatenate([pos, neg], axis=1)
+            labels_all = np.concatenate([np.ones(pos.shape[1], np.float32),
+                                         np.zeros(neg.shape[1], np.float32)])
+        graph = _single_graph_batch(store, message_passing_edges=train_pos)
+        edges, labels, masks = [], [], []
+        total = edges_all.shape[1]
+        for i in range(0, total, batch_size):
+            chunk = edges_all[:, i:i + batch_size]
+            lab = labels_all[i:i + batch_size]
+            b = chunk.shape[1]
+            if b < batch_size:  # pad the ragged tail; mask carries validity
+                chunk = np.pad(chunk, ((0, 0), (0, batch_size - b)))
+                lab = np.pad(lab, (0, batch_size - b))
+            edges.append(chunk.astype(np.int32))
+            labels.append(lab)
+            masks.append((np.arange(batch_size) < b).astype(np.float32))
+        return LinkPredictionData(graph=graph, edges=edges, labels=labels,
+                                  edge_mask=masks, train_edges=train_pos)
+
+    raise ValueError(f"unknown task type for domain {domain_name}")

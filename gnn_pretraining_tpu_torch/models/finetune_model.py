@@ -3,7 +3,8 @@
 Port of ``gnn_pretraining_tpu/models/finetune_model.py`` (reference
 src/models/finetune_model.py:20-80). The transfer of pretrained weights into
 it is ``utils.convert.load_pretrained_into_finetune``; the freeze rules of
-fine-tuning wait for the training slice.
+fine-tuning (encoder frozen for ENZYMES, backbone frozen for linear_probe,
+per-group learning rates) are ``finetune.finetune.create_finetune_optimizer``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ import torch
 from torch import nn
 
 from gnn_pretraining_tpu_torch import config
-from gnn_pretraining_tpu_torch.models.gnn import GINBackbone, InputEncoder, init_generator
+from gnn_pretraining_tpu_torch.models.gnn import (
+    GINBackbone,
+    InputEncoder,
+    init_generator,
+    share_dropout_source,
+)
 from gnn_pretraining_tpu_torch.models.heads import MLPHead, MLPLinkPredictor
 from gnn_pretraining_tpu_torch.ops.segment import segment_mean
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
@@ -24,7 +30,10 @@ H = config.GNN_HIDDEN_DIM
 
 class FinetuneGNN(nn.Module):
     """``aggregation``: ``"pallas"`` is kernel K1 (its plain version on the
-    CPU), ``"dense"`` one f32 matmul, ``"coo"`` gather + scatter-add."""
+    CPU), ``"dense"`` one f32 matmul, ``"coo"`` gather + scatter-add.
+
+    Train-mode dropout draws from ``self.dropout`` (a ``DropoutSource`` on
+    the model's device, seeded 0 until ``seed_dropout``)."""
 
     def __init__(self, domain_name: str, aggregation: str = "pallas", *,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -46,6 +55,10 @@ class FinetuneGNN(nn.Module):
                                                device=device)  # no hidden layer
         else:
             self.classification_head = MLPLinkPredictor(generator=gen, device=device)
+        self.dropout = share_dropout_source(self, device)
+
+    def seed_dropout(self, seed: int) -> None:
+        self.dropout.seed(seed)
 
     def embed(self, x, node_mask, *, adj=None, senders=None, receivers=None,
               edge_mask=None) -> torch.Tensor:

@@ -11,13 +11,17 @@ Attribute names are the reference PyTorch model's (``gin_conv.nn.{0,1,3}``,
 ``gin_conv.eps``, ``layers.{i}``), so a ``state_dict`` has its keys.
 Parameters are drawn from an explicit ``torch.Generator`` with
 torch.nn.Linear's U(±1/√fan_in) rule for weight and bias. Train/eval is the
-module's ``training`` flag.
+module's ``training`` flag. Every ReLU is an ``nn.ReLU`` module, so that
+``utils.relu_branches`` can record and replay the side of the kink each unit
+takes. Dropout never reads torch's global generator: every
+``Dropout`` draws from the explicit generator of its ``DropoutSource`` (one
+per model, on the model's device), or takes keep-masks injected there.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +42,69 @@ H = config.GNN_HIDDEN_DIM
 def init_generator(generator: Optional[torch.Generator]) -> torch.Generator:
     """The caller's CPU generator for parameter init, else one seeded 0."""
     return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
+class DropoutSource:
+    """Where a model's dropout layers get their keep-masks.
+
+    ``generator`` is an explicit ``torch.Generator`` on the device of the
+    activations; ``seed(s)`` makes or reseeds it. ``inject(masks)`` queues
+    keep-masks (1 = keep) that the next train-mode dropout calls take, in call
+    order, before any is drawn: a parity test hands over another
+    implementation's draws this way."""
+
+    def __init__(self, device=None, seed: Optional[int] = None):
+        self.device = torch.device(device) if device is not None else None
+        self.generator: Optional[torch.Generator] = None
+        self.injected: List[torch.Tensor] = []
+        if seed is not None:
+            self.seed(seed)
+
+    def seed(self, seed: int) -> None:
+        if self.generator is None:
+            self.generator = torch.Generator(device=self.device or "cpu")
+        self.generator.manual_seed(int(seed))
+
+    def inject(self, masks: Sequence[torch.Tensor]) -> None:
+        self.injected = list(masks)
+
+    def keep_mask(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        if self.injected:
+            keep = self.injected.pop(0)
+            if keep.shape != x.shape:
+                raise ValueError(f"injected keep-mask {tuple(keep.shape)} does "
+                                 f"not fit activations {tuple(x.shape)}")
+            return keep.to(device=x.device, dtype=x.dtype)
+        if self.generator is None:
+            raise RuntimeError("train-mode dropout needs a seeded generator: "
+                               "call DropoutSource.seed() (the model's "
+                               "seed_dropout) first")
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return (u >= rate).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout, ``x * keep / (1 - rate)``, identity in eval mode and
+    at rate 0; ``keep`` comes from ``source`` (see ``DropoutSource``)."""
+
+    def __init__(self, rate: float, source: Optional[DropoutSource] = None):
+        super().__init__()
+        self.rate = float(rate)
+        self.source = source if source is not None else DropoutSource()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        return x * self.source.keep_mask(x, self.rate) / (1.0 - self.rate)
+
+
+def share_dropout_source(model: nn.Module, device, seed: int = 0) -> DropoutSource:
+    """Give every ``Dropout`` under ``model`` one source seeded on ``device``."""
+    source = DropoutSource(device, seed)
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.source = source
+    return source
 
 
 class TorchLinear(nn.Module):
@@ -68,11 +135,12 @@ class InputEncoder(nn.Module):
         device = resolve_device(device)
         self.linear = TorchLinear(in_features, H, generator=generator, device=device)
         self.batch_norm = MaskedBatchNorm(H, device=device)
-        self.dropout = nn.Dropout(config.DROPOUT_RATE)
+        self.relu = nn.ReLU()
+        self.dropout = Dropout(config.DROPOUT_RATE)
 
     def forward(self, x: torch.Tensor, node_mask: torch.Tensor | None) -> torch.Tensor:
         h = self.batch_norm(self.linear(x), node_mask)
-        return self.dropout(F.relu(h))
+        return self.dropout(self.relu(h))
 
 
 def _aggregate(h: torch.Tensor, eps: torch.Tensor, adj, senders, receivers,
@@ -121,7 +189,8 @@ class GINLayer(nn.Module):
         self.aggregation = aggregation   # "dense" | "pallas" | "coo"
         self.gin_conv = GINConv(generator=generator, device=device)
         self.batch_norm = MaskedBatchNorm(H, device=device)
-        self.dropout = nn.Dropout(config.DROPOUT_RATE)
+        self.relu = nn.ReLU()
+        self.dropout = Dropout(config.DROPOUT_RATE)
 
     def forward(self, h, node_mask, *, adj=None, senders=None, receivers=None,
                 edge_mask=None) -> torch.Tensor:
@@ -129,7 +198,7 @@ class GINLayer(nn.Module):
                           senders=senders, receivers=receivers,
                           edge_mask=edge_mask)
         z = self.batch_norm(z + h, node_mask)   # residual before the BN
-        return self.dropout(F.relu(z))
+        return self.dropout(self.relu(z))
 
 
 class GINBackbone(nn.Module):

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from gnn_pretraining_tpu_torch import config
-from gnn_pretraining_tpu_torch.models.gnn import TorchLinear, init_generator
+from gnn_pretraining_tpu_torch.models.gnn import Dropout, TorchLinear, init_generator
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
 
 
@@ -35,7 +35,7 @@ class MLPHead(nn.Module):
             if i < n - 1:
                 rate = (dropout_rates[i] if dropout_rates is not None
                         else config.DROPOUT_RATE)
-                layers += [nn.ReLU(), nn.Dropout(rate)]
+                layers += [nn.ReLU(), Dropout(rate)]
         self.mlp = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,8 @@ from gnn_pretraining_tpu_torch.ops.spmm import (
     gin_aggregate,
     gin_aggregate_coo,
     gin_aggregate_dense,
+    gin_spmm_bwd,
     gin_spmm_fwd,
+    spmm_bwd_reference,
     spmm_reference,
 )

@@ -98,8 +98,9 @@ def library() -> ctypes.CDLL:
             build()
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gin_spmm_fwd.argtypes = [p, i, p, p, p, i, i, i, i, p]
-        lib.gin_spmm_fwd.restype = i
+        for entry in (lib.gin_spmm_fwd, lib.gin_spmm_bwd):
+            entry.argtypes = [p, i, p, p, p, i, i, i, i, p]
+            entry.restype = i
         lib.gin_kernels_error_string.argtypes = [i]
         lib.gin_kernels_error_string.restype = ctypes.c_char_p
         _lib = lib

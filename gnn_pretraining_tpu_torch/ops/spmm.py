@@ -5,13 +5,16 @@ Port of ``gnn_pretraining_tpu/ops/spmm.py``. The paths:
   * ``gin_aggregate_coo``   -- gather + ``index_add_`` over the COO edge list
                                (reference semantics);
   * ``gin_aggregate_dense`` -- ``A @ h`` as one f32 matmul;
-  * ``spmm``                -- kernel K1-fwd (``csrc/gin_spmm.cu``) on a CUDA
-                               tensor; its plain version ``spmm_reference``
-                               on a CPU tensor, and only there.
+  * ``spmm``                -- kernel K1 (``csrc/gin_spmm.cu``) on CUDA
+                               tensors, forward and backward; its plain
+                               versions ``spmm_reference`` and
+                               ``spmm_bwd_reference`` on CPU tensors, and
+                               only there.
 
 The adjacency is built once per batch (``build_dense_adjacency``) and reused
-by all 5 GIN layers. K1's backward (``Aᵀ g + (1 + eps) g``) is not ported
-yet, so ``spmm`` on the card refuses inputs that would need a gradient.
+by all 5 GIN layers. ``spmm`` is one ``torch.autograd.Function``: its
+backward is K1-bwd, ``dh = Aᵀ g + (1 + eps) g`` with A read in place (no
+transposed copy), and ``d eps = Σ g ⊙ h``; the adjacency gets no gradient.
 """
 
 from __future__ import annotations
@@ -74,13 +77,16 @@ def spmm_reference(adj: torch.Tensor, h: torch.Tensor, eps,
     return agg + (1.0 + eps) * h
 
 
-def gin_spmm_fwd(adj: torch.Tensor, h: torch.Tensor, eps,
-                 mode: str = "split") -> torch.Tensor:
-    """Launch K1-fwd on CUDA tensors: ``A @ h + (1+eps) h`` -> [N, F] f32.
+def spmm_bwd_reference(adj: torch.Tensor, g: torch.Tensor, eps,
+                       mode: str = "split") -> torch.Tensor:
+    """The plain version of K1-bwd: ``Aᵀ g + (1+eps) g`` with the kernel's
+    rounding applied to g (``spmm_reference`` on the transposed adjacency)."""
+    return spmm_reference(adj.t(), g, eps, mode)
 
-    ``adj`` [N, N] bf16 or f32, ``h`` [N, F] f32, both contiguous on one card;
-    ``eps`` a float or a 1-element f32 tensor on that card. Raises on anything
-    else, and when the kernel does not build or launch."""
+
+def _launch(entry: str, adj: torch.Tensor, h: torch.Tensor, eps,
+            mode: str) -> torch.Tensor:
+    """Check the operands and launch one of K1's two C entries on them."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {list(MODES)}")
     if h.device.type != "cuda" or adj.device != h.device:
@@ -97,18 +103,25 @@ def gin_spmm_fwd(adj: torch.Tensor, h: torch.Tensor, eps,
         eps = torch.tensor([float(eps)], dtype=torch.float32, device=h.device)
     if eps.numel() != 1 or eps.dtype != torch.float32 or eps.device != h.device:
         raise ValueError(f"eps must be one f32 value on {h.device}")
-    if torch.is_grad_enabled() and (h.requires_grad or eps.requires_grad):
-        raise NotImplementedError(
-            "K1's backward is not ported yet (ROADMAP queue 2, K1 bwd); run "
-            "the card path under torch.no_grad() or torch.inference_mode()")
-    eps = eps.reshape(1).contiguous()
+    eps = eps.detach().reshape(1).contiguous()
     out = torch.empty_like(h)
-    lib = _build.library()
-    code = lib.gin_spmm_fwd(
+    code = getattr(_build.library(), entry)(
         adj.data_ptr(), int(adj.dtype == torch.bfloat16), h.data_ptr(),
         eps.data_ptr(), out.data_ptr(), n, f, MODES[mode], h.device.index,
         torch.cuda.current_stream(h.device).cuda_stream)
-    _build.check(code, "gin_spmm_fwd")
+    _build.check(code, entry)
+    return out
+
+
+def gin_spmm_fwd(adj: torch.Tensor, h: torch.Tensor, eps,
+                 mode: str = "split") -> torch.Tensor:
+    """Launch K1-fwd on CUDA tensors: ``A @ h + (1+eps) h`` -> [N, F] f32.
+
+    ``adj`` [N, N] bf16 or f32, ``h`` [N, F] f32, both contiguous on one card;
+    ``eps`` a float or a 1-element f32 tensor on that card. Raises on anything
+    else, and when the kernel does not build or launch. No autograd graph is
+    recorded here: ``spmm`` wraps this launch and K1-bwd in one Function."""
+    out = _launch("gin_spmm_fwd", adj, h.detach(), eps, mode)
     gin_spmm_fwd.launches += 1
     return out
 
@@ -116,13 +129,57 @@ def gin_spmm_fwd(adj: torch.Tensor, h: torch.Tensor, eps,
 gin_spmm_fwd.launches = 0
 
 
+def gin_spmm_bwd(adj: torch.Tensor, g: torch.Tensor, eps,
+                 mode: str = "split") -> torch.Tensor:
+    """Launch K1-bwd on CUDA tensors: ``Aᵀ g + (1+eps) g`` -> [N, F] f32,
+    contracting over A's rows in place. Operands as ``gin_spmm_fwd``, with
+    the upstream gradient ``g`` (contiguous) where ``h`` was."""
+    out = _launch("gin_spmm_bwd", adj, g.detach(), eps, mode)
+    gin_spmm_bwd.launches += 1
+    return out
+
+
+gin_spmm_bwd.launches = 0
+
+
+class _GinSpmm(torch.autograd.Function):
+    """K1 forward and backward as one differentiable op.
+
+    On CUDA tensors both directions launch the kernel; on CPU tensors both
+    take the plain versions, so the CPU tests run this same wiring."""
+
+    @staticmethod
+    def forward(ctx, adj, h, eps, mode):
+        ctx.mode = mode
+        ctx.save_for_backward(adj, h, eps)
+        if h.device.type == "cpu" and adj.device.type == "cpu":
+            return spmm_reference(adj, h, eps, mode)
+        return gin_spmm_fwd(adj, h, eps, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        adj, h, eps = ctx.saved_tensors
+        dh = deps = None
+        if ctx.needs_input_grad[1]:
+            # A gradient out of autograd may be a view or an expanded scalar.
+            g = g.contiguous()
+            if g.device.type == "cpu" and adj.device.type == "cpu":
+                dh = spmm_bwd_reference(adj, g, eps, ctx.mode)
+            else:
+                dh = gin_spmm_bwd(adj, g, eps, ctx.mode)
+        if ctx.needs_input_grad[2]:
+            deps = (g * h).sum().to(eps.dtype).reshape(eps.shape)
+        return None, dh, deps, None
+
+
 def spmm(adj: torch.Tensor, h: torch.Tensor, eps,
          mode: str = "split") -> torch.Tensor:
-    """``A @ h + (1+eps) h``: kernel K1-fwd for CUDA tensors, its plain
-    version ``spmm_reference`` for tensors on the CPU."""
-    if h.device.type == "cpu" and adj.device.type == "cpu":
-        return spmm_reference(adj, h, eps, mode)
-    return gin_spmm_fwd(adj, h, eps, mode)
+    """``A @ h + (1+eps) h``, differentiable in ``h`` and ``eps``: kernel K1
+    (forward and backward) for CUDA tensors, its plain versions for tensors
+    on the CPU."""
+    if not torch.is_tensor(eps):
+        eps = torch.tensor([float(eps)], dtype=torch.float32, device=h.device)
+    return _GinSpmm.apply(adj, h, eps, mode)
 
 
 def gin_aggregate(h: torch.Tensor, eps, *, adj: torch.Tensor | None = None,

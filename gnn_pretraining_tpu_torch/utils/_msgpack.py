@@ -1,15 +1,18 @@
-"""A small msgpack decoder for the subset that flax's serializer writes.
+"""A small msgpack codec for the subset that flax's serializer writes.
 
 The card's machine has no ``msgpack`` package, and the port must read the
 checkpoints and transfer artifacts that the JAX package writes with
-``flax.serialization.msgpack_serialize``. That format is plain msgpack plus two
-extension types:
+``flax.serialization.msgpack_serialize``, and write checkpoints that
+``msgpack_restore`` reads. That format is plain msgpack plus two extension
+types:
 
   * ext code 1 (``ndarray``): the payload is itself msgpack,
     ``[shape, dtype_name, raw C-order bytes]``;
   * ext code 3 (``npscalar``): the same payload, returned here as a 0-d array.
 
 Any other extension code raises, as does a byte that starts no known type.
+``packb`` writes dicts with string keys, lists, str, bool, None, int, float
+(as float64), bytes, numpy arrays (ext 1) and numpy scalars (ext 3).
 """
 
 from __future__ import annotations
@@ -121,3 +124,74 @@ def _ext(buf: memoryview, i: int, n: int) -> Tuple[np.ndarray, int]:
     shape, dtype_name, raw = unpackb(payload)
     arr = np.frombuffer(raw, dtype=np.dtype(dtype_name)).reshape(shape)
     return arr.copy(), i + 1 + n
+
+
+def packb(obj: Any) -> bytes:
+    """Encode ``obj`` as one msgpack object, arrays in flax's extension."""
+    out = bytearray()
+    _encode(obj, out)
+    return bytes(out)
+
+
+def _head(out: bytearray, n: int, fix, codes) -> None:
+    """A length header: the fix form when it fits, else the 8/16/32-bit code."""
+    if fix is not None and n <= fix[1]:
+        out.append(fix[0] | n)
+        return
+    for code, size in codes:
+        if n < 1 << (8 * size):
+            out.append(code)
+            out += n.to_bytes(size, "big")
+            return
+    raise ValueError(f"object of length {n} is too long for msgpack")
+
+
+def _encode(obj: Any, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, (bool, np.bool_)):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        if 0 <= obj <= 0x7F:
+            out.append(obj)
+        elif -32 <= obj < 0:
+            out.append(obj + 0x100)
+        elif obj >= 0:                       # the smallest unsigned form
+            code, size = next((c, n) for c, n in _UINT.items() if obj < 1 << (8 * n))
+            out.append(code)
+            out += obj.to_bytes(size, "big")
+        else:                                # the smallest signed form
+            code, (fmt, size) = next(
+                (c, f) for c, f in _INT.items() if obj >= -(1 << (8 * f[1] - 1)))
+            out.append(code)
+            out += struct.pack(fmt, obj)
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _head(out, len(raw), (0xA0, 31), ((0xD9, 1), (0xDA, 2), (0xDB, 4)))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        _head(out, len(obj), None, ((0xC4, 1), (0xC5, 2), (0xC6, 4)))
+        out += obj
+    elif isinstance(obj, dict):
+        _head(out, len(obj), (0x80, 15), ((0xDE, 2), (0xDF, 4)))
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"msgpack map key must be str, got {type(k)}")
+            _encode(k, out)
+            _encode(v, out)
+    elif isinstance(obj, (list, tuple)):
+        _head(out, len(obj), (0x90, 15), ((0xDC, 2), (0xDD, 4)))
+        for v in obj:
+            _encode(v, out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        code = _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR
+        arr = np.asarray(obj)               # tobytes() is C order whatever the strides
+        payload = packb([list(arr.shape), arr.dtype.name, arr.tobytes()])
+        _head(out, len(payload), None, ((0xC7, 1), (0xC8, 2), (0xC9, 4)))
+        out += struct.pack(">b", code)
+        out += payload
+    else:
+        raise TypeError(f"cannot msgpack {type(obj)}")

@@ -1,4 +1,4 @@
-"""Weights carried across: flax variable trees to torch ``state_dict``s.
+"""Weights carried across: flax variable trees to torch ``state_dict``s and back.
 
 The port's modules use the reference PyTorch model's attribute names, so a
 ``state_dict`` here has the reference's keys (``gnn_backbone.layers.0.
@@ -13,6 +13,9 @@ package's reference importer (``gnn_pretraining_tpu/utils/torch_import.py``):
   ``mlp_0``/``mlp_bn``/``mlp_1``     -> ``gin_conv.nn.{0,1,3}``
   ``linear_{j}`` (MLPHead)           -> ``mlp.{3j}``
   ``input_encoders_{D}``             -> ``input_encoders.{D}``
+
+``state_dict_to_variables`` is the inverse (a linear ``weight`` is told from
+a BatchNorm one by its rank).
 """
 
 from __future__ import annotations
@@ -70,6 +73,71 @@ def variables_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor
     for collection in ("params", "batch_stats"):
         walk(collection, variables.get(collection, {}), [])
     return out
+
+
+def _flax_path(key: str):
+    """A state_dict key -> (collection, flax path, leaf name)."""
+    parts = key.split(".")
+    leaf = parts.pop()
+    path: List[str] = []
+    i = 0
+    while i < len(parts):
+        part = parts[i]
+        nxt = parts[i + 1] if i + 1 < len(parts) else None
+        if part == "layers" and nxt is not None:
+            path.append(f"layers_{nxt}")
+            i += 2
+        elif part == "mlp" and nxt is not None:
+            path.append(f"linear_{int(nxt) // 3}")
+            i += 2
+        elif part == "input_encoders" and nxt is not None:
+            path.append(f"input_encoders_{nxt}")
+            i += 2
+        elif part == "gin_conv":
+            if leaf == "eps" and nxt is None:
+                i += 1
+            else:                           # gin_conv.nn.{0,1,3}
+                path.append({"0": "mlp_0", "1": "mlp_bn", "3": "mlp_1"}[parts[i + 2]])
+                i += 3
+        else:
+            path.append(part)
+            i += 1
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", path, {"running_mean": "mean", "running_var": "var"}[leaf]
+    return "params", path, leaf
+
+
+def state_dict_to_variables(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A port ``state_dict`` -> ``{"params": ..., "batch_stats": ...}`` of
+    numpy leaves in the flax layout; inverse of ``variables_to_state_dict``."""
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, tensor in state.items():
+        collection, path, leaf = _flax_path(key)
+        arr = tensor.detach().cpu().numpy()
+        if collection == "params":
+            if leaf == "weight":
+                leaf, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
+            elif leaf == "eps":
+                arr = arr.reshape(())
+        node = out[collection]
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.array(arr)              # a C-ordered copy; keeps rank 0
+    return out
+
+
+def load_variables(model: torch.nn.Module, variables: Dict[str, Any]) -> torch.nn.Module:
+    """Load a flax ``{"params", "batch_stats"}`` pair into a port module (on
+    the module's device); the tests carry weights across with it."""
+    device = next(model.parameters()).device
+    model.load_state_dict({k: v.to(device)
+                           for k, v in variables_to_state_dict(variables).items()})
+    return model
+
+
+def model_variables(model: torch.nn.Module) -> Dict[str, Any]:
+    """The way back: a port module's weights and BN statistics as flax trees."""
+    return state_dict_to_variables(model.state_dict())
 
 
 def load_pretrained_into_finetune(finetune_state: Dict[str, torch.Tensor],
