@@ -10,8 +10,10 @@ toolkit (nvcc). Phases, each printed as one JSON line:
   2. build   -- compile the port's CUDA sources (build/torch_kernels/);
   3. kernel  -- K1-fwd and K1-bwd against their plain versions in every
                 precision mode, at every shape the main path gives them (the
-                serving buckets and the pads of the fine-tune loaders built
-                from the stores of phase 5) and a ragged one, bf16 and f32
+                serving buckets, the pads of the fine-tune loaders built from
+                the stores of phase 5, and the pads of the pretrain sampler
+                and val loaders over the stores of phase 8) and a ragged one,
+                bf16 and f32
                 adjacency; the autograd Function's dH and d-eps against
                 autograd through the dense f32 aggregation;
   4. slice   -- the serving path through the user's entry points: ENZYMES
@@ -27,10 +29,24 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 on the dense f32 path with the same dropout seed and the
                 same ReLU branches;
   6. entry   -- finetune() for 2 epochs on each of the three stores;
-  7. timing  -- CUDA-event medians of K1 fwd and bwd, their plain versions,
-                one PyTorch call for the same function, each serving forward
-                and each train step;
-  8. profile -- each serving forward's and train step's device time by kernel
+  7. ntxent  -- K2-fwd, K2-bwd-rows and K2-bwd-cols against their plain
+                versions at the rows the pretrain loaders give them (2 x the
+                node pad of each domain's train and val batches, 2 x the
+                graphs of a train and a val batch) and at 4104 rows with
+                invalid rows, d = 128, f32;
+  8. pretrain -- one scheme-s2 train step (node + graph contrast over MUTAG,
+                PROTEINS, NCI1, ENZYMES stores of the datasets' real sizes) at
+                full width, counted at its K1 and K2 launches and held against
+                a dense-f32 twin on the plain NT-Xent formula with the same
+                views, PCGrad order, dropout draws and ReLU branches; then
+                pretrain() for 1 epoch and finetune() on ENZYMES for 1 epoch
+                from the checkpoint it wrote;
+  9. timing  -- CUDA-event medians of K1 fwd and bwd and of the three K2
+                kernels, their plain versions, one PyTorch call for the same
+                function where there is one, each serving forward and each
+                train step, and the K2 Function against the plain NT-Xent
+                formula (forward + backward) over a range of rows;
+ 10. profile -- each serving forward's and train step's device time by kernel
                 (torch.profiler) and the share of its time the card idles.
 
 Then the card's nvidia-smi line, a {"kernels": [...]} line, and last
@@ -93,11 +109,28 @@ RELU_FLIP_SHARE = 1e-5
 # Real sizes of the datasets the synthetic stores stand in for.
 ENZYMES_GRAPHS, ENZYMES_MEAN_NODES, ENZYMES_AVG_DEGREE = 600, 32.6, 3.8
 CORA_UNDIRECTED_EDGES, CORA_SPLIT = 5278, (140, 500, 1000)
+# Scheme s2 at full width: per train step, K1 runs once per GIN layer, view
+# and (task, domain) forward, 2 tasks x 4 domains x 2 views x 5 layers, fwd
+# and bwd (the encoders train, so every layer's input needs a gradient); K2
+# runs once per (task, domain) NT-Xent, fwd and both bwd kernels.
+PRETRAIN_SCHEME = "s2"
+PRETRAIN_STEP_LAUNCHES = {"gin_spmm_fwd": 80, "gin_spmm_bwd": 80, "ntxent_fwd": 8,
+                          "ntxent_bwd_rows": 8, "ntxent_bwd_cols": 8}
+PRETRAIN_ENTRY_EPOCHS = 1
+# K2 vs its plain versions: the summed loss relative, each dZ term as max
+# |diff| over max |ref| (both f32 on the card; sums in another order).
+NTXENT_LOSS_TOL = 1e-5
+NTXENT_GRAD_TOL = 1e-4
+NTXENT_MULTI_TILE_ROWS = 4104       # > 4096, ragged against the 32-row tiles
+NTXENT_VALID_SHARE = 0.7            # of node pairs; graph rows all valid
+CROSSOVER_ROWS = (4096, 8192)       # besides 16 and each domain's 2 x n_pad
 TIMING_REPS = 30
 WARMUP = 5
 PROFILE_REPS = 5
-# Published H100 SXM peaks (dense bf16 tensor cores, HBM3).
+# Published H100 SXM peaks (dense bf16 tensor cores, f32 outside them, HBM3);
+# every bound_ms counts operations at the first, K1's and K2's alike.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # Bucket shapes of the tracked serving artifacts (artifacts/MANIFEST.json).
 ENZYMES_BUCKET = dict(graphs=32, nodes=1056, edges=3992)
@@ -165,9 +198,13 @@ def random_adjacency(rng, n: int, device, dtype) -> torch.Tensor:
 
 def kernel_shapes(processed_dir: Path) -> dict:
     """(N, F) -> where the main path meets it: the serving buckets, the node
-    pad of every fine-tune loader over the stores, and a ragged shape."""
+    pad of every fine-tune loader and of every pretrain sampler and val
+    loader over the stores, and a ragged shape."""
     from gnn_pretraining_tpu_torch import config
-    from gnn_pretraining_tpu_torch.data.loaders import create_finetune_arrays
+    from gnn_pretraining_tpu_torch.data.loaders import (
+        create_finetune_arrays,
+        create_pretrain_val_loader,
+    )
 
     shapes = {shape: ["serving"] for shape in SERVING_SHAPES}
     for domain in ("ENZYMES", "Cora_NC", "Cora_LP"):
@@ -176,6 +213,12 @@ def kernel_shapes(processed_dir: Path) -> dict:
             data = create_finetune_arrays(domain, split, cfg.batch_size, processed_dir)
             graph = data.batches[0] if domain == "ENZYMES" else data.graph
             shapes.setdefault((graph.num_nodes, 256), []).append(f"{domain}/{split}")
+    cfg, loader = pretrain_loader(processed_dir)
+    for domain in cfg.pretrain_domains:
+        shapes.setdefault((loader.pads[domain][0], 256), []).append(
+            f"pretrain {domain}/train")
+        val = create_pretrain_val_loader(domain, processed_dir)[0]
+        shapes.setdefault((val.num_nodes, 256), []).append(f"pretrain {domain}/val")
     shapes.setdefault(RAGGED_SHAPE, []).append("ragged")
     emit({"phase": "kernel", "shapes": [{"n": n, "f": f, "of": of}
                                         for (n, f), of in shapes.items()]})
@@ -530,6 +573,340 @@ def entry_phase(processed_dir: Path, out_root: Path) -> None:
             raise AssertionError(f"finetune() on {cfg.run_name} failed its checks")
 
 
+def write_pretrain_stores(processed_dir: Path) -> None:
+    """Seeded synthetic stores of the pretrain-only datasets at their real
+    sizes, with graph properties (MUTAG 188 graphs of ~17.9 nodes, PROTEINS
+    1113 of ~39.1, NCI1 4110 of ~29.9); ENZYMES is write_stores' store."""
+    from gnn_pretraining_tpu_torch.data.synthetic import synthetic_pretrain_store
+
+    rng = np.random.default_rng(SEED + 3)
+    sizes = {}
+    for name in ("MUTAG", "PROTEINS", "NCI1"):
+        store = synthetic_pretrain_store(name, rng)
+        store.save(processed_dir / f"{name}.npz")
+        sizes[name] = {"graphs": store.num_graphs, "nodes": int(store.node_offsets[-1]),
+                       "directed_edges": int(store.edge_offsets[-1]),
+                       "train": len(store.splits["train"]), "val": len(store.splits["val"])}
+    emit({"phase": "pretrain", "stores": sizes})
+
+
+def pretrain_loader(processed_dir: Path):
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.data.loaders import create_pretrain_train_loader
+
+    cfg = config.PretrainConfig(PRETRAIN_SCHEME, 42)
+    return cfg, create_pretrain_train_loader(cfg.pretrain_domains,
+                                             np.random.default_rng(SEED), processed_dir)
+
+
+def ntxent_shapes(processed_dir: Path) -> dict:
+    """K2 rows -> where the pretrain path meets them: 2 x the node pad of each
+    domain's train and val batches (node contrast), 2 x the graphs of a train
+    and a val batch (graph contrast), and a multi-tile row count. Train rows
+    run all three kernels; val rows (eval, no gradient) the forward only."""
+    from gnn_pretraining_tpu_torch.data.loaders import create_pretrain_val_loader
+
+    cfg, loader = pretrain_loader(processed_dir)
+    rows = {}
+
+    def add(r, of):
+        if of not in rows.setdefault(r, []):
+            rows[r].append(of)
+
+    add(2 * loader.samples_per_domain, "train graph_contrast")
+    for domain in cfg.pretrain_domains:
+        add(2 * loader.pads[domain][0], f"train {domain} node_contrast")
+    for domain in cfg.pretrain_domains:
+        val = create_pretrain_val_loader(domain, processed_dir)[0]
+        add(2 * val.num_nodes, f"val {domain} node_contrast")
+        add(2 * val.num_graphs, "val graph_contrast")
+    add(NTXENT_MULTI_TILE_ROWS, "multi-tile")
+    emit({"phase": "ntxent", "rows": [{"rows": r, "of": of} for r, of in rows.items()]})
+    return rows
+
+
+def ntxent_inputs(rng, rows: int, device):
+    """Ẑ [rows, 128] (normalized, invalid rows zeroed), validity and τ: node
+    pairs valid with NTXENT_VALID_SHARE, graph rows (16) all valid."""
+    from gnn_pretraining_tpu_torch.ops import ntxent
+
+    n = rows // 2
+    z = [torch.from_numpy(rng.normal(size=(n, 128)).astype(np.float32)).to(device)
+         for _ in range(2)]
+    share = 1.0 if rows <= 16 else NTXENT_VALID_SHARE
+    valid = torch.from_numpy((rng.random(n) < share).astype(np.float32)).to(device)
+    zhat, vv, _ = ntxent._prep(z[0], z[1], valid)
+    return zhat, vv, torch.tensor([0.37], device=device), z, valid
+
+
+def ntxent_kernel_phase(device, shapes) -> dict:
+    """Each K2 kernel against its plain version on the same inputs; the
+    backward kernels take the plain forward's mx and den, so each kernel is
+    held alone."""
+    from gnn_pretraining_tpu_torch.ops import ntxent
+
+    rng = np.random.default_rng(SEED + 4)
+    errors = {}
+    for rows in shapes:
+        zhat, vv, temp, _, _ = ntxent_inputs(rng, rows, device)
+        g = (0.8 * vv).contiguous()
+        loss, mx, den = ntxent.ntxent_fwd(zhat, vv, temp)
+        ref_loss, ref_mx, ref_den = ntxent.ntxent_fwd_reference(zhat, vv, temp)
+        outs = {"ntxent_bwd_rows": (ntxent.ntxent_bwd_rows(zhat, vv, temp, ref_mx, ref_den, g),
+                                    ntxent.ntxent_bwd_rows_reference(zhat, vv, temp, ref_mx,
+                                                                     ref_den, g)),
+                "ntxent_bwd_cols": (ntxent.ntxent_bwd_cols(zhat, vv, temp, ref_mx, ref_den, g),
+                                    ntxent.ntxent_bwd_cols_reference(zhat, vv, temp, ref_mx,
+                                                                     ref_den, g))}
+        torch.cuda.synchronize()
+        keep = vv > 0
+        total, ref_total = float((loss * vv).sum()), float((ref_loss * vv).sum())
+        loss_rel = abs(total - ref_total) / abs(ref_total)
+        row_err = float((loss - ref_loss)[keep].abs().max())
+        row_rel = row_err / float(ref_loss[keep].abs().max())
+        den_rel = float(((den - ref_den).abs() / ref_den)[keep].max())
+        ok = bool(loss_rel <= NTXENT_LOSS_TOL and row_rel <= NTXENT_LOSS_TOL
+                  and den_rel <= NTXENT_LOSS_TOL and torch.isfinite(loss).all()
+                  and torch.equal(mx[keep] >= -1e29, ref_mx[keep] >= -1e29))
+        emit({"phase": "ntxent", "kernel": "ntxent_fwd", "rows": rows, "d": 128,
+              "valid_rows": int(keep.sum()), "loss_sum_rel_err": loss_rel,
+              "row_loss_max_abs_err": row_err, "row_loss_max_rel_err": row_rel,
+              "den_max_rel_err": den_rel, "tol": NTXENT_LOSS_TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"K2 fwd at {rows} rows: loss {loss_rel}, rows {row_rel}")
+        errors[("ntxent_fwd", rows)] = row_err
+        for name, (out, ref) in outs.items():
+            abs_err = float((out - ref).abs().max())
+            rel = abs_err / float(ref.abs().max())
+            ok = bool(rel <= NTXENT_GRAD_TOL and torch.isfinite(out).all())
+            emit({"phase": "ntxent", "kernel": name, "rows": rows, "d": 128,
+                  "max_abs_err": abs_err, "max_rel_err": rel, "tol": NTXENT_GRAD_TOL,
+                  "ok": ok})
+            if not ok:
+                raise AssertionError(f"{name} at {rows} rows: relative error {rel}")
+            errors[(name, rows)] = abs_err
+    return errors
+
+
+K2_COUNTERS = ("ntxent_fwd", "ntxent_bwd_rows", "ntxent_bwd_cols")
+
+
+def counters() -> dict:
+    """name -> the launch-counting wrapper of every kernel of the port."""
+    from gnn_pretraining_tpu_torch.ops import ntxent
+    from gnn_pretraining_tpu_torch.ops.spmm import gin_spmm_bwd, gin_spmm_fwd
+
+    return {"gin_spmm_fwd": gin_spmm_fwd, "gin_spmm_bwd": gin_spmm_bwd,
+            **{name: getattr(ntxent, name) for name in K2_COUNTERS}}
+
+
+def pretrain_step_phase(device, processed_dir: Path):
+    """One s2 train step on K1 + K2 against a dense-f32 twin on the plain
+    NT-Xent formula; both get the same batches, views, PCGrad order,
+    dropout draws and ReLU branches. Returns step() for the timing phase."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.pretrain import pretrain as pt
+    from gnn_pretraining_tpu_torch.pretrain import tasks
+    from gnn_pretraining_tpu_torch.pretrain.augmentations import (
+        ViewSource,
+        create_two_views,
+    )
+    from gnn_pretraining_tpu_torch.pretrain.optimizers import create_task_specific_optimizer
+    from gnn_pretraining_tpu_torch.utils import relu_branches
+
+    cfg, loader = pretrain_loader(processed_dir)
+    total_steps = len(loader) * PRETRAIN_ENTRY_EPOCHS
+    batches = {d: b.to(device) for d, b in loader.sample_step().items()}
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    views = [create_two_views(batches[d], generator)       # in the tasks' order
+             for _ in cfg.active_tasks for d in sorted(batches)]
+    perm = [1, 0]
+    sides = {}
+    for aggregation in ("pallas", "dense"):
+        model = pt.build_pretrain_model(cfg, aggregation, device)
+        if sides:
+            model.load_state_dict(sides["pallas"][0].state_dict())
+        optimizer, labels, lrs = create_task_specific_optimizer(model, cfg.active_tasks)
+        source = ViewSource(device, seed=SEED)
+        source.inject(views)
+        step = pt.make_train_step(model, cfg, optimizer, total_steps, source)
+        sides[aggregation] = (model, step, pt.PretrainState(), labels, lrs)
+
+    model, step, state, labels, lrs = sides["pallas"]
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    kernels = counters()
+    before = {name: c.launches for name, c in kernels.items()}
+    # The twin takes the K1 model's side of every ReLU kink and the winners
+    # of every max pool (graph contrast): a max that two nodes reach within
+    # rounding would otherwise go to either, and move every gradient below.
+    pooled = []
+    with relu_branches.record(model) as branches, \
+            relu_branches.max_pool(tasks, record=pooled):
+        out = step(state, batches, perm=perm)
+    launched = {name: c.launches - before[name] for name, c in kernels.items()}
+    twin, twin_step, twin_state, _, _ = sides["dense"]
+    pooled_entries = sum(int(w.any(0).sum()) for w in pooled)
+    config.FUSED_NTXENT = False          # the twin takes the plain formula
+    try:
+        with relu_branches.replay(twin, branches) as flips, \
+                relu_branches.max_pool(tasks, replay=pooled) as pool_flips:
+            twin_out = twin_step(twin_state, batches, perm=perm)
+    finally:
+        config.FUSED_NTXENT = True
+    if any(c.launches - before[name] != launched[name] for name, c in kernels.items()):
+        raise AssertionError("the dense twin launched K1 or K2")
+    torch.cuda.synchronize()
+
+    losses = {t: (float(out[f"train/loss/{t}"]), float(twin_out[f"train/loss/{t}"]))
+              for t in cfg.active_tasks}
+    names = [n for n, _ in model.named_parameters()]
+
+    def grad_errors(grads, twin_grads):
+        """max |diff| / max |twin|, ||diff|| / ||twin|| (all leaves, and the
+        heads' alone)."""
+        g_max = max(float(g.abs().max()) for g in twin_grads.values())
+
+        def l2_err(prefix=""):
+            keys = [n for n in grads if n.startswith(prefix)]
+            ref = math.sqrt(sum(float(twin_grads[n].double().pow(2).sum()) for n in keys))
+            err = math.sqrt(sum(float((grads[n] - twin_grads[n]).double().pow(2).sum())
+                                for n in keys))
+            return err / ref
+
+        return {"max": max(float((grads[n] - twin_grads[n]).abs().max())
+                           for n in grads) / g_max,
+                "l2": l2_err(), "heads_l2": l2_err("heads_")}
+
+    # Per task, before PCGrad: what K1 and K2 change. After PCGrad the
+    # combined gradient also carries PCGrad's conflict decisions, a sign test
+    # per (leaf, task pair) that rounding can flip where a dot product is
+    # near 0: then that leaf's combined gradient moves by up to its own size.
+    # So the combined gradient is held in L2 over all leaves and in max over
+    # the leaves both sides decided alike; the leaves decided apart must
+    # carry no clear gradient (each task's at most 1e-3 of its largest).
+    per_task = {t: grad_errors(dict(zip(names, step.last_task_grads[t])),
+                               dict(zip(names, twin_step.last_task_grads[t])))
+                for t in cfg.active_tasks}
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    twin_grads = {n: p.grad for n, p in twin.named_parameters()}
+    g_max = max(float(g.abs().max()) for g in twin_grads.values())
+    combined = grad_errors(grads, twin_grads)
+    apart = [n for n, a, b in zip(names, pcgrad_conflicts(step.last_task_grads),
+                                  pcgrad_conflicts(twin_step.last_task_grads)) if a != b]
+    combined["max_decided_alike"] = max(float((grads[n] - twin_grads[n]).abs().max())
+                                        for n in names if n not in apart) / g_max
+    task_g_max = {t: max(float(g.abs().max()) for g in gs)
+                  for t, gs in twin_step.last_task_grads.items()}
+    apart_share = max((float(g[names.index(n)].abs().max()) / task_g_max[t]
+                       for t, g in twin_step.last_task_grads.items() for n in apart),
+                      default=0.0)
+    conflicts = (float(out["gradient_surgery/total_conflicts"]),
+                 float(twin_out["gradient_surgery/total_conflicts"]))
+    # As in the fine-tune cells: AdamW moves an element by ~lr whatever its
+    # gradient, so where the gradient is rounding noise the sides may part by
+    # up to 2 lr; where it is clear the mean distance stays under 0.05 lr.
+    p_err_sum, clear_count, moved = 0.0, 0, 0.0
+    params, twin_params = dict(model.named_parameters()), dict(twin.named_parameters())
+    with torch.no_grad():
+        for n, label in labels.items():
+            lr = lrs[label]
+            dist = (params[n] - twin_params[n]).abs() / lr
+            if float(dist.max()) > 2.02:
+                raise AssertionError(f"{n}: K1 and dense parameters part by more than 2 lr")
+            clear = twin_grads[n].abs() > 1e-3 * g_max
+            p_err_sum += float(dist[clear].sum())
+            clear_count += int(clear.sum())
+            moved = max(moved, float((params[n] - start[n]).abs().max()) / lr)
+    p_err = p_err_sum / max(clear_count, 1)
+    stats_moved = any(not torch.equal(v, start[k]) for k, v in model.state_dict().items()
+                      if k.endswith("running_mean"))
+    units = sum(b.numel() for b in branches)
+    ok = bool(launched == PRETRAIN_STEP_LAUNCHES
+              and all(math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_TOL * abs(b)
+                      for a, b in losses.values())
+              and all(e <= TRAIN_GRAD_TOL for errs in per_task.values()
+                      for e in errs.values())
+              and combined["l2"] <= TRAIN_GRAD_TOL
+              and combined["max_decided_alike"] <= TRAIN_GRAD_TOL and apart_share <= 1e-3
+              and sum(flips) <= RELU_FLIP_SHARE * units
+              and p_err <= 0.05 and clear_count > 100 and moved > 0.5 and stats_moved
+              and state.opt_step == 1 and state.balancer_step == 1)
+    emit({"phase": "pretrain", "step": PRETRAIN_SCHEME, "launches": launched,
+          "expected": PRETRAIN_STEP_LAUNCHES,
+          "node_pads": {d: b.num_nodes for d, b in batches.items()},
+          "losses_k1_k2_vs_dense": losses,
+          "grad_norm": float(out["train/gradients/model_grad_norm"]),
+          "task_grad_err": per_task, "combined_grad_err": combined,
+          "pcgrad_conflicts_k1_k2_vs_dense": conflicts,
+          "pcgrad_leaves_decided_apart": apart,
+          "decided_apart_grad_over_task_max": apart_share, "grad_tol": TRAIN_GRAD_TOL,
+          "relu_units": units,
+          "relu_flips_replayed": sum(flips), "max_pool_calls": len(pool_flips),
+          "max_pool_entries": pooled_entries, "max_pool_flips_replayed": sum(pool_flips),
+          "param_mean_err_over_lr": p_err, "params_with_clear_grad": clear_count,
+          "param_moved_over_lr": moved, "ok": ok})
+    if not ok:
+        raise AssertionError("the s2 pretrain step failed its checks")
+    return lambda: step(state, batches, perm=perm)
+
+
+def pcgrad_conflicts(task_grads) -> list:
+    """PCGrad's conflict decision per leaf for a scheme of two tasks (s2):
+    one task pair, projected where <g_a, g_b> < 0 and both are nonzero."""
+    if len(task_grads) != 2:
+        raise ValueError("one task pair expected")
+    a, b = task_grads.values()
+    return [bool((ga.double() * gb.double()).sum() < 0 and ga.any() and gb.any())
+            for ga, gb in zip(a, b)]
+
+
+def pretrain_entry_phase(device, processed_dir: Path, out_root: Path) -> None:
+    """pretrain() for s2, then finetune() on ENZYMES from its checkpoint."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.finetune.finetune import build_finetune_model, finetune
+    from gnn_pretraining_tpu_torch.pretrain.pretrain import pretrain
+    from gnn_pretraining_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg = config.PretrainConfig(PRETRAIN_SCHEME, 42)
+    t0 = time.perf_counter()
+    result = pretrain(cfg, aggregation="pallas", epochs=PRETRAIN_ENTRY_EPOCHS,
+                      processed_dir=processed_dir, out_root=out_root)
+    seconds = time.perf_counter() - t0
+    log = out_root / "metrics" / config.PRETRAIN_PROJECT_NAME / f"{cfg.run_name}.jsonl"
+    rows = [json.loads(line) for line in open(log)]
+    train_rows = [r for r in rows if "train/loss/total" in r]
+    keys = {"train/loss/total", "train/gradients/model_grad_norm",
+            "gradient_surgery/conflict_ratio", "train/system/steps_per_s",
+            *(f"train/loss/{d}/{t}" for d in cfg.pretrain_domains for t in cfg.active_tasks)}
+    ckpt = load_checkpoint(result["checkpoint"])
+    losses = [r["train/loss/total"] for r in train_rows]
+
+    ft_cfg = config.FinetuneConfig("ENZYMES", "full_finetune", PRETRAIN_SCHEME, 42)
+    loaded = build_finetune_model(ft_cfg, "pallas", device, out_root)
+    kernel = ckpt["params"]["gnn_backbone"]["layers_0"]["mlp_0"]["kernel"]
+    transferred = bool(np.array_equal(
+        loaded.gnn_backbone.layers[0].gin_conv.nn[0].weight.detach().cpu().numpy(), kernel.T))
+    t1 = time.perf_counter()
+    ft = finetune(ft_cfg, aggregation="pallas", processed_dir=processed_dir,
+                  epochs=1, out_root=out_root)
+    ft_seconds = time.perf_counter() - t1
+    steps = len(pretrain_loader(processed_dir)[1]) * PRETRAIN_ENTRY_EPOCHS
+    ok = bool(keys <= set(train_rows[0]) and len(train_rows) == steps
+              and losses and np.isfinite(losses).all() and "val/loss/total" in rows[-1]
+              and ckpt["meta"]["epoch"] == 1 and transferred
+              and "heads_node_contrast_MUTAG" in ckpt["params"]
+              and np.isfinite(ft["test/loss"]))
+    emit({"phase": "pretrain", "entry": cfg.run_name, "seconds": seconds,
+          "train_steps": len(train_rows), "first_loss": losses[0], "last_loss": losses[-1],
+          "val_total": result["best_val_total"],
+          "steps_per_sec": train_rows[-1]["train/system/steps_per_s"],
+          "backbone_transferred": transferred, "finetune_cell": ft_cfg.run_name,
+          "finetune_seconds": ft_seconds, "finetune_test_loss": ft["test/loss"],
+          "finetune_test_accuracy": ft["test/accuracy"], "ok": ok})
+    if not ok:
+        raise AssertionError("pretrain() / finetune() from its checkpoint failed its checks")
+
+
 def median_ms(fn) -> float:
     for _ in range(WARMUP):
         fn()
@@ -635,6 +1012,95 @@ def timing_phase(device, forwards, steps, timed, errors, launches):
     return {**forward_ms, **step_ms}, kernels
 
 
+def k2_bound(name: str, rows: int, d: int = 128) -> dict:
+    """Least time for one K2 kernel on the H100 at R = rows: S = ẐẐᵀ is 2 R²
+    d operations (the backward kernels add 2 R² d for G·Ẑ), against Ẑ, the row
+    vectors and the outputs each moved once. Operations count at the card's
+    tensor-core peak, as K1's do; ``bound_f32_simt_ms`` at the f32 peak
+    outside the tensor cores, where this kernel runs its products."""
+    ops = (2 if name == "ntxent_fwd" else 4) * rows * rows * d
+    vectors_in, out = ((1, 3 * rows) if name == "ntxent_fwd"
+                       else (4, rows * d))
+    nbytes = 4 * (rows * d + vectors_in * rows + 1 + out)
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_f32_simt_ms": max(ops / PEAK_F32_FLOPS * 1e3, t_bytes),
+            "operations": ops, "bytes": nbytes}
+
+
+K2_ROWS = {name: {"replaces": f"gnn_pretraining_tpu/ops/ntxent_pallas.py:{line}"}
+           for name, line in (("ntxent_fwd", 209), ("ntxent_bwd_rows", 247),
+                              ("ntxent_bwd_cols", 271))}
+
+
+def ntxent_timing_phase(device, shapes, errors, launches):
+    """Each K2 kernel and its plain version at the pretrain path's rows (no
+    single PyTorch call computes NT-Xent: library_ms null), then the K2
+    Function against the plain formula, forward + backward, over rows (the
+    H100 crossover of the dispatch threshold). Returns the kernel entries."""
+    from gnn_pretraining_tpu_torch.ops import ntxent
+    from gnn_pretraining_tpu_torch.ops.sddmm import nt_xent_loss
+
+    rng = np.random.default_rng(SEED + 5)
+    path_rows = sorted(r for r, of in shapes.items() if of != ["multi-tile"])
+    trained = {r for r in path_rows if any(o.startswith("train") for o in shapes[r])}
+    entries = {name: [] for name in K2_ROWS}
+    for rows in path_rows:
+        zhat, vv, temp, _, _ = ntxent_inputs(rng, rows, device)
+        g = (0.8 * vv).contiguous()
+        _, mx, den = ntxent.ntxent_fwd_reference(zhat, vv, temp)
+        calls = {
+            "ntxent_fwd": (lambda: ntxent.ntxent_fwd(zhat, vv, temp),
+                           lambda: ntxent.ntxent_fwd_reference(zhat, vv, temp)),
+            "ntxent_bwd_rows": (lambda: ntxent.ntxent_bwd_rows(zhat, vv, temp, mx, den, g),
+                                lambda: ntxent.ntxent_bwd_rows_reference(
+                                    zhat, vv, temp, mx, den, g)),
+            "ntxent_bwd_cols": (lambda: ntxent.ntxent_bwd_cols(zhat, vv, temp, mx, den, g),
+                                lambda: ntxent.ntxent_bwd_cols_reference(
+                                    zhat, vv, temp, mx, den, g)),
+        }
+        for name, (kernel, plain) in calls.items():
+            if name != "ntxent_fwd" and rows not in trained:
+                continue                       # eval runs the forward only
+            row = {"rows": rows, "d": 128, "of": shapes[rows], "ms": median_ms(kernel),
+                   "plain_ms": median_ms(plain), "library_ms": None,
+                   "max_abs_err": errors[(name, rows)], **k2_bound(name, rows)}
+            emit({"phase": "timing", "kernel": name, **row})
+            entries[name].append(row)
+
+    crossover = []
+    for rows in sorted({*path_rows, *CROSSOVER_ROWS}):
+        _, _, temp, (z1, z2), valid = ntxent_inputs(rng, rows, device)
+        a, b = z1.clone().requires_grad_(), z2.clone().requires_grad_()
+        row = {"rows": rows}
+        for label, fn in (("fused_ms", ntxent.nt_xent), ("formula_ms", nt_xent_loss)):
+            row[label] = median_ms(lambda: fn(a, b, temp, valid)[0].backward())
+        row["formula_over_fused"] = row["formula_ms"] / row["fused_ms"]
+        emit({"phase": "timing", "ntxent_crossover": row})
+        crossover.append(row)
+
+    kernels = []
+    for name, rows in entries.items():
+        # The largest train node pad, where all three kernels run every step.
+        main = max((e for e in rows if e["rows"] in trained), key=lambda e: e["rows"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "gnn_pretraining_tpu_torch/csrc/ntxent.cu",
+            "replaces": K2_ROWS[name]["replaces"],
+            "launches": sum(launches[name].values()), "launches_by_path": launches[name],
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "bound_f32_simt_ms": main["bound_f32_simt_ms"],
+            "at": {"rows": main["rows"], "d": 128, "of": main["of"]},
+            "also": [{k: e[k] for k in ("rows", "of", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "max_abs_err")}
+                     for e in rows if e is not main],
+        })
+    return kernels, crossover
+
+
 def profile_phase(calls, event_ms) -> None:
     """Where a serving forward's or a train step's time goes: device time by
     kernel from torch.profiler over PROFILE_REPS calls, and the idle share of
@@ -661,10 +1127,12 @@ def profile_phase(calls, event_ms) -> None:
         busy = sum(ms for _, ms, _ in kernels)
         k1 = {d: sum(ms for key, ms, _ in kernels if f"gin_spmm_{d}_kernel" in key)
               for d in ("fwd", "bwd")}
+        k2 = sum(ms for key, ms, _ in kernels if "ntxent_" in key and "_kernel" in key)
         emit({"phase": "profile", "call": name, "event_ms": event_ms[name],
               "device_busy_ms": busy if kernels else None,
               "k1_fwd_device_ms": k1["fwd"] if kernels else None,
               "k1_bwd_device_ms": k1["bwd"] if kernels else None,
+              "k2_device_ms": k2 if kernels else None,
               "idle_share": 1 - busy / event_ms[name] if kernels else None,
               "kernels_per_call": sum(c for _, _, c in kernels),
               "top": [[key[:60], ms, c] for key, ms, c in kernels[:6]]})
@@ -674,35 +1142,54 @@ def main() -> int:
     t0 = time.perf_counter()
     card = device_phase()
     import_port()
-    from gnn_pretraining_tpu_torch.ops.spmm import gin_spmm_bwd, gin_spmm_fwd
-
     build_phase()
     device = torch.device("cuda")
+    kernels = counters()
+
+    def run_path(drive):
+        """Drive one path with every launch count set to 0 just before it;
+        returns what it returns and the counts read just after."""
+        for c in kernels.values():
+            c.launches = 0
+        out = drive()
+        return out, {name: c.launches for name, c in kernels.items()}
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         processed_dir, out_root = Path(tmp) / "processed", Path(tmp) / "out"
         processed_dir.mkdir()
         write_stores(processed_dir)
+        write_pretrain_stores(processed_dir)
         errors = kernel_phase(device, kernel_shapes(processed_dir))
-        forwards, enz, cora, serving_launches = slice_phase(device)
-        gin_spmm_fwd.launches = gin_spmm_bwd.launches = 0   # the train path's run
-        steps, train_graphs = train_phase(device, processed_dir)
-        entry_phase(processed_dir, out_root)
-        train_launches = (gin_spmm_fwd.launches, gin_spmm_bwd.launches)
-    launches = {"gin_spmm_fwd": {"serving": serving_launches, "train": train_launches[0]},
-                "gin_spmm_bwd": {"serving": 0, "train": train_launches[1]}}
-    if min(serving_launches, *train_launches) < 1:
+        k2_shapes = ntxent_shapes(processed_dir)
+        k2_errors = ntxent_kernel_phase(device, k2_shapes)
+        (forwards, enz, cora, _), serving = run_path(lambda: slice_phase(device))
+        (steps, train_graphs), train = run_path(lambda: (
+            train_phase(device, processed_dir), entry_phase(processed_dir, out_root))[0])
+        pretrain_step, pretrain = run_path(lambda: (
+            pretrain_step_phase(device, processed_dir),
+            pretrain_entry_phase(device, processed_dir, out_root))[0])
+        pretrain_graph = max(pretrain_loader(processed_dir)[1].sample_step().values(),
+                             key=lambda b: b.num_nodes).to(device)
+    launches = {name: {"serving": serving[name], "train": train[name],
+                       "pretrain": pretrain[name]} for name in kernels}
+    unlaunched = [name for name in kernels if pretrain[name] < 1]
+    if min(serving["gin_spmm_fwd"], train["gin_spmm_fwd"], train["gin_spmm_bwd"]) < 1 \
+            or unlaunched:
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    steps[f"pretrain {PRETRAIN_SCHEME}"] = pretrain_step
     calls = {**forwards, **steps}
     both = ("gin_spmm_fwd", "gin_spmm_bwd")
     timed = (("ENZYMES serving bucket", enz, both[:1]),
              ("ENZYMES train batch", train_graphs["ENZYMES/full_finetune"], both),
+             ("pretrain batch, largest pad", pretrain_graph, both),
              ("Cora full graph", cora["NC"], both))
-    event_ms, kernels = timing_phase(device, forwards, steps, timed, errors,
-                                     launches)
+    event_ms, k1_kernels = timing_phase(device, forwards, steps, timed, errors,
+                                        launches)
+    k2_kernels, _ = ntxent_timing_phase(device, k2_shapes, k2_errors, launches)
     profile_phase(calls, event_ms)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
-    emit({"kernels": kernels})
+    emit({"kernels": k1_kernels + k2_kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,9 +4,11 @@ A second package beside the JAX one, which stays the reference. It runs on
 one NVIDIA H100: plain tensor code is PyTorch, and each Pallas kernel of the
 JAX package gets a kernel written by hand for Hopper (``csrc/``). Ported so
 far: the serving path (the eval-mode forward of ``FinetuneGNN`` with the
-weights of the JAX transfer artifacts) and the fine-tune training path
-(``finetune.finetune``: GC, NC and LP steps and the per-step host loop), both
-on kernel K1, the GIN aggregation, forward and backward.
+weights of the JAX transfer artifacts), the fine-tune training path
+(``finetune.finetune``: GC, NC and LP steps and the per-step host loop) and
+multi-task pretraining with the contrastive tasks (``pretrain.pretrain``:
+schemes s2 and b3), on kernel K1, the GIN aggregation, forward and backward,
+and kernel K2, the fused NT-Xent, forward and backward.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,16 +1,23 @@
-"""Fine-tune loaders producing padded GraphBatches.
+"""Loaders producing padded GraphBatches.
 
-Port of the fine-tune half of ``gnn_pretraining_tpu/data/loaders.py``
-(reference src/data/finetune_data_loaders.py:68-114): dispatch on task type,
-no shuffling, one fixed padded shape per loader. The arrays equal the JAX
-package's for the same store. The pretraining sampler is not ported yet.
+Port of ``gnn_pretraining_tpu/data/loaders.py``; all of it is numpy, so for
+the same store and seed every batch equals the JAX package's array by array:
+
+  * ``BalancedMultiDomainSampler``: each step samples ``BATCH_SIZE //
+    num_domains`` graphs per domain with replacement; ``num_steps =
+    max(len(train)) // samples_per_domain`` (reference
+    src/data/pretrain_data_loaders.py:28-46); quantile pads, over-budget
+    draws resampled;
+  * the pretrain val loader: unshuffled batches of 32 (:56-65);
+  * the fine-tune loaders: dispatch on task type, no shuffling, one fixed
+    padded shape per loader (src/data/finetune_data_loaders.py:68-114).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -33,6 +40,82 @@ def _batch_pads(store: GraphStore, graph_indices: Sequence[int], batch_size: int
         max_n = max(max_n, int(nn[i:i + batch_size].sum()))
         max_e = max(max_e, int(ne[i:i + batch_size].sum()))
     return round_up(max(max_n, 1)), round_up(max(max_e, 1))
+
+
+class BalancedMultiDomainSampler:
+    """Per-step dict of one padded batch per domain, sampled with replacement."""
+
+    def __init__(self, domain_stores: Dict[str, GraphStore],
+                 rng: np.random.Generator,
+                 batch_size: int = config.PRETRAIN_BATCH_SIZE):
+        self.domain_stores = domain_stores
+        self.rng = rng
+        self.samples_per_domain = batch_size // len(domain_stores)
+        self.train_indices = {d: np.asarray(s.splits["train"], np.int64)
+                              for d, s in domain_stores.items()}
+        # max(len(ds)) // samples_per_domain (:33), at least one step.
+        self.num_steps = max(
+            1, max(len(ix) for ix in self.train_indices.values())
+            // self.samples_per_domain)
+        # Pads: the largest graph + the 0.95 quantile for the other slots,
+        # capped at the worst case; sample_step resamples a draw over budget.
+        self.pads = {}
+        self.graph_sizes = {}
+        for d, s in domain_stores.items():
+            ix = self.train_indices[d]
+            all_nn, all_ne = np.diff(s.node_offsets), np.diff(s.edge_offsets)
+            self.graph_sizes[d] = (all_nn, all_ne)
+            nn, ne = all_nn[ix], all_ne[ix]
+            spd = self.samples_per_domain
+            n_pad = int(nn.max()) + int(np.ceil(np.quantile(nn, 0.95))) * (spd - 1)
+            e_pad = int(ne.max()) + int(np.ceil(np.quantile(ne, 0.95))) * (spd - 1)
+            self.pads[d] = (round_up(min(n_pad, int(nn.max()) * spd)),
+                            round_up(max(min(e_pad, int(ne.max()) * spd), 1)))
+
+    def __len__(self) -> int:
+        return self.num_steps
+
+    def __iter__(self) -> Iterator[Dict[str, GraphBatch]]:
+        for _ in range(self.num_steps):
+            yield self.sample_step()
+
+    def sample_step(self) -> Dict[str, GraphBatch]:
+        out = {}
+        for d, store in self.domain_stores.items():
+            ix = self.train_indices[d]
+            n_pad, e_pad = self.pads[d]
+            nn, ne = self.graph_sizes[d]
+            for _ in range(100):
+                chosen = ix[self.rng.integers(0, len(ix), self.samples_per_domain)]
+                if nn[chosen].sum() <= n_pad and ne[chosen].sum() <= e_pad:
+                    break
+            else:
+                raise RuntimeError(
+                    f"{d}: 100 consecutive draws exceeded the quantile pad "
+                    f"budget (n_pad={n_pad}, e_pad={e_pad})")
+            out[d] = build_batch(store, chosen, n_pad, e_pad,
+                                 self.samples_per_domain, with_properties=True)
+        return out
+
+
+def create_pretrain_train_loader(domains: Sequence[str], rng: np.random.Generator,
+                                 processed_dir=None) -> BalancedMultiDomainSampler:
+    processed_dir = Path(processed_dir) if processed_dir else config.PROCESSED_DIR
+    stores = {d: GraphStore.load(processed_dir / f"{d}.npz") for d in domains}
+    return BalancedMultiDomainSampler(stores, rng)
+
+
+def create_pretrain_val_loader(domain: str, processed_dir=None,
+                               batch_size: int = config.PRETRAIN_BATCH_SIZE
+                               ) -> List[GraphBatch]:
+    """Unshuffled val batches with the graph properties attached."""
+    processed_dir = Path(processed_dir) if processed_dir else config.PROCESSED_DIR
+    store = GraphStore.load(processed_dir / f"{domain}.npz")
+    idx = np.asarray(store.splits["val"], np.int64)
+    n_pad, e_pad = _batch_pads(store, idx, batch_size)
+    return [build_batch(store, idx[i:i + batch_size], n_pad, e_pad, batch_size,
+                        with_properties=True)
+            for i in range(0, len(idx), batch_size)]
 
 
 @dataclasses.dataclass

@@ -1,10 +1,11 @@
-"""Seeded synthetic stand-in stores for the fine-tune domains, at any size.
+"""Seeded synthetic stand-in stores for the pretrain and fine-tune domains.
 
 Random graphs with the real datasets' layout (feature width, label range,
-split names), written from a numpy seed: the smoke script builds them at the
-datasets' real sizes, the tests at toy sizes. They carry no signal worth
-learning; they exist so that an entry point that reads ``processed_dir`` can be
-driven without the datasets. The calibrated generators of the JAX package
+split names, graph properties for the pretrain domains), written from a numpy
+seed at any size: the smoke script builds them at the datasets' real sizes,
+the tests at toy sizes. They carry no signal worth learning; they exist so
+that an entry point that reads ``processed_dir`` can be driven without the
+datasets. The calibrated generators of the JAX package
 (``data/synthetic.py`` there) are offline preprocessing and are not ported yet.
 """
 
@@ -16,6 +17,15 @@ import numpy as np
 
 from gnn_pretraining_tpu_torch import config
 from gnn_pretraining_tpu_torch.data.batch import GraphStore
+from gnn_pretraining_tpu_torch.data.properties import (
+    compute_graph_properties,
+    standardize_properties,
+)
+
+# (graphs, mean nodes, mean degree) of the pretrain datasets: the JAX
+# package's TU_SPECS (data/synthetic.py:34-38, from the reference's README).
+PRETRAIN_SIZES = {"MUTAG": (188, 17.9, 2.2), "PROTEINS": (1113, 39.1, 3.7),
+                  "NCI1": (4110, 29.9, 2.2), "ENZYMES": (600, 32.6, 3.8)}
 
 
 def _undirected_edges(rng, n: int, m: int) -> np.ndarray:
@@ -47,8 +57,31 @@ def synthetic_graph_store(domain: str, rng: np.random.Generator,
     return GraphStore(name=domain, node_features=feats,
                       edge_index=np.concatenate(edges, 1).astype(np.int32),
                       node_offsets=node_offsets, edge_offsets=edge_offsets,
-                      y=rng.integers(0, config.NUM_CLASSES[domain], g).astype(np.int64),
+                      y=rng.integers(0, config.NUM_CLASSES.get(domain, 2), g).astype(np.int64),
                       splits=splits, meta={"source": "synthetic"})
+
+
+def synthetic_pretrain_store(domain: str, rng: np.random.Generator,
+                             num_graphs: int | None = None) -> GraphStore:
+    """A pretrain store of ``domain``'s real size (``PRETRAIN_SIZES``; or
+    ``num_graphs`` graphs): Poisson node counts (at least 3), the dataset's
+    mean degree, graph properties z-scored on the train split. The split is
+    the JAX preprocessing's: 80/10/10 for a fine-tune domain (ENZYMES),
+    else a shuffled 90/10 train/val."""
+    count, mean_nodes, degree = PRETRAIN_SIZES[domain]
+    g = count if num_graphs is None else num_graphs
+    store = synthetic_graph_store(domain, rng, np.maximum(3, rng.poisson(mean_nodes, g)),
+                                  degree)
+    if domain not in config.DOWNSTREAM_TUDATASETS:
+        perm = rng.permutation(g).astype(np.int64)
+        n_val = int(np.ceil(g * config.VAL_FRACTION))
+        store.splits = {"train": np.sort(perm[n_val:]), "val": np.sort(perm[:n_val])}
+    props = np.stack([
+        compute_graph_properties(store.edge_index[:, store.edge_offsets[i]:store.edge_offsets[i + 1]],
+                                 int(store.node_offsets[i + 1] - store.node_offsets[i]))
+        for i in range(g)])
+    store.graph_properties = standardize_properties(props, store.splits["train"])
+    return store
 
 
 def synthetic_planetoid_stores(name: str, rng: np.random.Generator,

@@ -10,3 +10,4 @@ from gnn_pretraining_tpu_torch.models.gnn import (
 )
 from gnn_pretraining_tpu_torch.models.heads import MLPHead, MLPLinkPredictor
 from gnn_pretraining_tpu_torch.models.norm import MaskedBatchNorm
+from gnn_pretraining_tpu_torch.models.pretrain_model import PretrainableGNN

@@ -3,7 +3,7 @@
 Port of ``gnn_pretraining_tpu/models/heads.py:37-78``. ``MLPHead.mlp`` is an
 ``nn.Sequential`` of Linear / ReLU / Dropout, so its Linear layers sit at
 indices 0, 3, 6, ... as in the reference. The gradient-reversal layer and the
-domain classifier belong to pretraining and are not ported yet.
+domain classifier come with the domain-adversarial pretraining task.
 """
 
 from __future__ import annotations

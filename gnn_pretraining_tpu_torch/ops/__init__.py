@@ -1,4 +1,5 @@
-"""Compute ops: segment reductions and the GIN aggregation (kernel K1).
+"""Compute ops: segment reductions, the GIN aggregation (kernel K1) and the
+fused NT-Xent (kernel K2, ``ops.ntxent``).
 
 The aggregation entry ``spmm`` is reached as ``ops.spmm.spmm``: the package
 attribute ``spmm`` is its module."""

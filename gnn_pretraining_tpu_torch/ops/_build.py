@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 Every ``*.cu`` file in ``gnn_pretraining_tpu_torch/csrc/`` is compiled for
-``sm_90a`` (one nvcc per source, all started together), and the objects are
-linked into ``build/torch_kernels/libgnn_kernels.so`` under the repository
-root. The library has a plain C interface: each entry returns
-``cudaGetLastError()`` after its launch. Nothing is built when a module is
+``sm_90a`` (one nvcc per source, all started together: K1 in
+``gin_spmm.cu``, K2 in ``ntxent.cu``), and the objects are linked into
+``build/torch_kernels/libgnn_kernels.so`` under the repository root. The
+library has a plain C interface: each entry returns ``cudaGetLastError()``
+after its launch. Nothing is built when a module is
 imported; ``library()`` builds at first use when the library is missing or
 older than a source.
 """
@@ -100,6 +101,11 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         for entry in (lib.gin_spmm_fwd, lib.gin_spmm_bwd):
             entry.argtypes = [p, i, p, p, p, i, i, i, i, p]
+            entry.restype = i
+        lib.ntxent_fwd.argtypes = [p] * 6 + [i, i, i, p]
+        for entry in (lib.ntxent_bwd_rows, lib.ntxent_bwd_cols):
+            entry.argtypes = [p] * 7 + [i, i, i, p]
+        for entry in (lib.ntxent_fwd, lib.ntxent_bwd_rows, lib.ntxent_bwd_cols):
             entry.restype = i
         lib.gin_kernels_error_string.argtypes = [i]
         lib.gin_kernels_error_string.restype = ctypes.c_char_p

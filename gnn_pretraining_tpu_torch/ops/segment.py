@@ -1,6 +1,6 @@
 """Masked segment reductions (PyG ``global_*_pool`` on padded batches).
 
-Port of ``gnn_pretraining_tpu/ops/segment.py:17-49``. Padding rows carry
+Port of ``gnn_pretraining_tpu/ops/segment.py``. Padding rows carry
 ``mask == 0``; they contribute nothing to any segment.
 """
 
@@ -47,3 +47,22 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     index = segment_ids.long().view(-1, *([1] * (data.dim() - 1))).expand_as(data)
     out = out.scatter_reduce(0, index, data, reduce="amax", include_self=True)
     return torch.where(out <= _NEG_INF / 2, torch.zeros_like(out), out)
+
+
+def segment_softmax_ce(logits: torch.Tensor, labels: torch.Tensor,
+                       row_mask: torch.Tensor):
+    """Row-wise softmax cross-entropy summed over the rows where ``row_mask``
+    is set; returns ``(loss_sum, num_rows)``.
+
+    Matches ``F.cross_entropy(logits, labels, reduction='sum')`` over those
+    rows (reference: src/pretrain/tasks.py:211). Masked rows are set to 0
+    first, so a row of masked logits cannot turn the sum into NaN; the row max
+    is subtracted without a gradient, as in the JAX function."""
+    mask = row_mask.bool()[:, None]
+    logits = torch.where(mask, logits, torch.zeros_like(logits))
+    row_max = logits.max(dim=-1, keepdim=True).values
+    shifted = logits - row_max.detach()
+    log_z = torch.log(torch.exp(shifted).sum(dim=-1))
+    label_logit = shifted.gather(-1, labels.long()[:, None])[:, 0]
+    losses = (log_z - label_logit) * row_mask.to(logits.dtype)
+    return losses.sum(), row_mask.to(torch.float32).sum()

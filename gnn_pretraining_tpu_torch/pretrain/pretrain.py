@@ -1,0 +1,315 @@
+"""Pretraining runtime: the multi-task train step and the host loop.
+
+Port of ``gnn_pretraining_tpu/pretrain/pretrain.py`` (reference
+src/pretrain/pretrain.py:96-353), the per-step path. One train step:
+
+  1. each task's loss over all domains, and its own gradient
+     (``torch.autograd.grad``; a parameter no task reaches gets zeros);
+  2. the adaptive loss balancer (a metric: the update does not use its
+     weights, as in the JAX step);
+  3. PCGrad over the per-task gradients (more than one task), torch-style
+     clipping to norm 0.5, one AdamW step with per-task head learning rates;
+  4. the same metric keys as the JAX step.
+
+The host loop samples the balanced multi-domain batches, evaluates every
+epoch (its balancer count is written back into the state), keeps the best
+validation checkpoint ``pretrain/model_{exp}_{seed}.msgpack`` (which the
+JAX package's ``load_checkpoint`` and this package's ``finetune()`` read),
+and stops after ``epochs // 2`` epochs without improvement. With
+``aggregation="pallas"`` every GIN layer runs K1 forward and backward, and
+every NT-Xent runs K2.
+
+Left for later: the chunked ``lax.scan`` runner (its per-step semantics are
+these), ``--resume`` with the optimizer state, ``--data_parallel``, the
+fidelity block of the run summary, and the tasks other than the contrastive
+two (``pretrain.tasks``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from gnn_pretraining_tpu_torch import config
+from gnn_pretraining_tpu_torch.data.loaders import (
+    create_pretrain_train_loader,
+    create_pretrain_val_loader,
+)
+from gnn_pretraining_tpu_torch.models.pretrain_model import PretrainableGNN
+from gnn_pretraining_tpu_torch.pretrain.augmentations import ViewSource
+from gnn_pretraining_tpu_torch.pretrain.balancer import balance_losses, np_balance
+from gnn_pretraining_tpu_torch.pretrain.optimizers import (
+    clip_grads_torch,
+    create_task_specific_optimizer,
+)
+from gnn_pretraining_tpu_torch.pretrain.pcgrad import apply_pcgrad
+from gnn_pretraining_tpu_torch.pretrain.schedulers import temperature_at
+from gnn_pretraining_tpu_torch.pretrain.tasks import (
+    TASK_FNS,
+    TaskContext,
+    compute_task_loss,
+)
+from gnn_pretraining_tpu_torch.utils.checkpoint import save_checkpoint
+from gnn_pretraining_tpu_torch.utils.convert import model_variables
+from gnn_pretraining_tpu_torch.utils.device import resolve_device
+from gnn_pretraining_tpu_torch.utils.logging import MetricLogger
+from gnn_pretraining_tpu_torch.utils.profiling import ThroughputMeter
+
+FLUSH_EVERY = 8          # train steps between two fetches of their metrics
+
+
+@dataclasses.dataclass
+class PretrainState:
+    """The counters the JAX ``TrainState`` threads beside params and optimizer
+    (which live in the model and the AdamW here)."""
+    opt_step: int = 0        # scheduler step (pre-step value)
+    balancer_step: int = 0   # the balancer's step count
+
+
+def build_pretrain_model(cfg: config.PretrainConfig, aggregation: str,
+                         device) -> PretrainableGNN:
+    """Initialised from ``cfg.seed``; dropout seeded ``cfg.seed + 1``."""
+    model = PretrainableGNN(cfg.pretrain_domains, cfg.active_tasks, aggregation,
+                            generator=torch.Generator().manual_seed(cfg.seed),
+                            device=device)
+    model.seed_dropout(cfg.seed + 1)
+    return model
+
+
+def _context(step: int, total_steps: int, views: ViewSource, device) -> TaskContext:
+    temp = torch.tensor([temperature_at(step, total_steps)], device=device)
+    return TaskContext(temperature=temp, views=views)
+
+
+def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimizer,
+                    total_steps: int, views: ViewSource,
+                    pcgrad_generator: Optional[torch.Generator] = None):
+    """``train_step(state, domain_batches, perm=None) -> metrics`` (device
+    tensors). It updates the model, the optimizer and ``state``; ``perm``
+    replaces PCGrad's draw of the task order. ``train_step.last_task_grads``
+    holds the last step's per-task gradients (task -> one tensor per
+    parameter, in ``named_parameters`` order), before PCGrad."""
+    tasks = [t for t in cfg.active_tasks if t != "domain_adv"]
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    top_keys = [n.split(".")[0] for n in names]
+    device = params[0].device
+
+    def train_step(state: PretrainState, domain_batches, perm=None):
+        model.train()
+        ctx = _context(state.opt_step, total_steps, views, device)
+        task_losses, per_domain_task, grads = {}, {}, {}
+        for t in tasks:
+            loss, per_domain = compute_task_loss(t, model, domain_batches, ctx)
+            g = torch.autograd.grad(loss, params, allow_unused=True)
+            grads[t] = [torch.zeros_like(p) if gi is None else gi
+                        for p, gi in zip(params, g)]
+            task_losses[t] = loss.detach()
+            per_domain_task[t] = {d: v.detach() for d, v in per_domain.items()}
+
+        train_step.last_task_grads = grads
+        total, weights, state.balancer_step = balance_losses(task_losses,
+                                                             state.balancer_step)
+        if len(tasks) > 1:
+            combined, metrics = apply_pcgrad(grads, top_keys,
+                                             generator=pcgrad_generator, perm=perm)
+        else:
+            combined, metrics = grads[tasks[0]], {}
+        clipped, pre_norm = clip_grads_torch(combined)
+        for p, g in zip(params, clipped):
+            p.grad = g
+        optimizer.step()
+
+        metrics["train/loss/total"] = total
+        for t, w in weights.items():
+            metrics[f"train/loss_balancer/weight/{t}"] = w
+        # The reference logs the norm after clipping (pretrain.py:182-188).
+        metrics["train/gradients/model_grad_norm"] = pre_norm * torch.clamp(
+            config.MAX_GRAD_NORM / (pre_norm + 1e-6), max=1.0)
+        for t, pd in per_domain_task.items():
+            for d, v in pd.items():
+                metrics[f"train/loss/{d}/{t}"] = v
+        for t, v in task_losses.items():
+            metrics[f"train/loss/{t}"] = v
+        for d in cfg.pretrain_domains:
+            metrics[f"train/loss/{d}"] = sum(per_domain_task[t][d] for t in per_domain_task)
+        state.opt_step += 1
+        return metrics
+
+    train_step.last_task_grads = None
+    return train_step
+
+
+def make_eval_fn(model: PretrainableGNN, cfg: config.PretrainConfig,
+                 total_steps: int, views: ViewSource):
+    """``eval_task_batch(task, domain, batch, step) -> loss`` in eval mode."""
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def eval_task_batch(task: str, domain: str, batch, step: int) -> torch.Tensor:
+        model.eval()
+        ctx = _context(step, total_steps, views, device)
+        loss, _ = compute_task_loss(task, model, {domain: batch}, ctx)
+        return loss
+
+    return eval_task_batch
+
+
+def run_evaluation(eval_fn, state: PretrainState, cfg, val_loaders, logger,
+                   global_step: int):
+    """Every (task, domain, batch) loss, fetched in one transfer; returns
+    (balanced total, metrics, the balancer's new step count)."""
+    losses = {(task, domain): [eval_fn(task, domain, b, state.opt_step) for b in batches]
+              for task in cfg.active_tasks for domain, batches in val_loaders.items()}
+    values = torch.stack([v for vs in losses.values() for v in vs]).cpu().numpy()
+    bounds = np.cumsum([0] + [len(vs) for vs in losses.values()])
+    fetched = {k: values[a:b] for k, a, b in zip(losses, bounds[:-1], bounds[1:])}
+
+    per_task = {}
+    per_domain_task = {d: {} for d in val_loaders}
+    for task in cfg.active_tasks:
+        domain_means = []
+        for domain in val_loaders:
+            m = float(np.mean(fetched[(task, domain)]))
+            per_domain_task[domain][task] = m
+            domain_means.append(m)
+        per_task[task] = float(np.mean(domain_means))
+    main = {t: v for t, v in per_task.items() if t != "domain_adv"}
+    total, balancer_step = np_balance(main, state.balancer_step)
+
+    metrics = {}
+    for d, tasks in per_domain_task.items():
+        for t, v in tasks.items():
+            metrics[f"val/loss/{d}/{t}"] = v
+        metrics[f"val/loss/{d}"] = float(np.mean(list(tasks.values())))
+    for t, v in per_task.items():
+        metrics[f"val/loss/{t}"] = v
+    metrics["val/loss/total"] = total
+    logger.log(metrics, step=global_step)
+    return total, metrics, balancer_step
+
+
+def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
+             epochs: int = config.PRETRAIN_EPOCHS, processed_dir=None,
+             use_wandb: bool = False, out_root=None, device=None) -> Dict[str, object]:
+    """Pretrain one scheme and return ``{best_val_total, epochs, checkpoint}``.
+
+    Runs on the card unless ``device="cpu"``. Checkpoints go to
+    ``out_root/pretrain``, metrics to ``out_root/metrics``."""
+    missing = [t for t in cfg.active_tasks if t not in TASK_FNS]
+    if missing:
+        raise NotImplementedError(f"scheme {cfg.exp_name} needs tasks {missing}, "
+                                  "not ported yet: ROADMAP queue 1")
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
+
+    out_root = Path(out_root or config.OUTPUT_DIR)
+    (out_root / "pretrain").mkdir(parents=True, exist_ok=True)
+    ckpt_path = out_root / "pretrain" / f"model_{cfg.run_name}.msgpack"
+    logger = MetricLogger(config.PRETRAIN_PROJECT_NAME, cfg.run_name,
+                          out_dir=out_root / "metrics", use_wandb=use_wandb)
+
+    rng = np.random.default_rng(cfg.seed)
+    val_loaders = {d: [b.to(device) for b in
+                       create_pretrain_val_loader(d, processed_dir=processed_dir)]
+                   for d in cfg.pretrain_domains}
+    train_loader = create_pretrain_train_loader(cfg.pretrain_domains, rng,
+                                                processed_dir=processed_dir)
+    steps_per_epoch = len(train_loader)
+    total_steps = steps_per_epoch * epochs
+
+    model = build_pretrain_model(cfg, aggregation, device)
+    optimizer, _, _ = create_task_specific_optimizer(model, cfg.active_tasks)
+    views = ViewSource(device, seed=cfg.seed + 2)
+    pcgrad_generator = torch.Generator().manual_seed(cfg.seed + 3)
+    state = PretrainState()
+    train_step = make_train_step(model, cfg, optimizer, total_steps, views,
+                                 pcgrad_generator)
+    eval_fn = make_eval_fn(model, cfg, total_steps, views)
+
+    # Aggregations per step and domain: two views per contrastive task.
+    forwards = sum(2 if t in ("node_contrast", "graph_contrast") else 1
+                   for t in cfg.active_tasks)
+    meter = ThroughputMeter()
+    pending: List[tuple] = []     # (step, epoch, device metrics, real edges)
+
+    def flush_pending():
+        if not pending:
+            return
+        keys = sorted(pending[0][2])
+        values = torch.stack([torch.stack([m[k].to(torch.float32).reshape(())
+                                           for k in keys])
+                              for _, _, m, _ in pending]).cpu().numpy()
+        for (step, epoch_of, _, edges), row in zip(pending, values):
+            m = {k: float(v) for k, v in zip(keys, row)}
+            m["train/progress/epoch"] = epoch_of
+            meter.update(edges, forwards * config.GNN_NUM_LAYERS)
+            m.update(meter.metrics())
+            logger.log(m, step=step)
+        pending.clear()
+
+    best_total = float("inf")
+    epochs_since_improvement = 0
+    global_step = 0
+    epoch = 0
+    for epoch in range(1, epochs + 1):
+        for host_batches in train_loader:
+            global_step += 1
+            edges = int(sum(float(b.edge_mask.sum()) for b in host_batches.values()))
+            batches = {d: b.to(device) for d, b in host_batches.items()}
+            pending.append((global_step, epoch, train_step(state, batches), edges))
+            if len(pending) >= FLUSH_EVERY:
+                flush_pending()
+            if global_step == 1:
+                meter.reset()            # the first step's warm-up is not counted
+        flush_pending()
+
+        total, val_metrics, state.balancer_step = run_evaluation(
+            eval_fn, state, cfg, val_loaders, logger, global_step)
+        print(f"[{cfg.run_name} +{time.time() - t_start:7.1f}s] epoch {epoch}: "
+              f"{steps_per_epoch} steps, val_total={total:.4f}", flush=True)
+        if total < best_total:
+            best_total = total
+            epochs_since_improvement = 0
+            variables = model_variables(model)
+            save_checkpoint(ckpt_path, variables["params"], variables["batch_stats"],
+                            epoch, val_metrics)
+        else:
+            epochs_since_improvement += 1
+        if epochs_since_improvement >= int(epochs * config.PRETRAIN_PATIENCE_FRACTION):
+            break
+
+    logger.finish()
+    return {"best_val_total": best_total, "epochs": epoch, "checkpoint": str(ckpt_path)}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--exp_name", type=str, required=True)
+    parser.add_argument("--seed", type=int, required=True)
+    parser.add_argument("--epochs", type=int, default=config.PRETRAIN_EPOCHS)
+    parser.add_argument("--aggregation", type=str, default="pallas",
+                        choices=["dense", "pallas", "coo"])
+    parser.add_argument("--processed_dir", type=str, default=None)
+    parser.add_argument("--out_root", type=str, default=None)
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda unless given (cpu runs the plain versions)")
+    parser.add_argument("--wandb", action="store_true",
+                        help="mirror the metrics to wandb (must be installed)")
+    args = parser.parse_args()
+    cfg = config.PretrainConfig(exp_name=args.exp_name, seed=args.seed)
+    print(pretrain(cfg, aggregation=args.aggregation, epochs=args.epochs,
+                   processed_dir=args.processed_dir, use_wandb=args.wandb,
+                   out_root=args.out_root, device=args.device))
+
+
+if __name__ == "__main__":
+    main()

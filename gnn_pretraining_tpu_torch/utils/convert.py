@@ -13,6 +13,7 @@ package's reference importer (``gnn_pretraining_tpu/utils/torch_import.py``):
   ``mlp_0``/``mlp_bn``/``mlp_1``     -> ``gin_conv.nn.{0,1,3}``
   ``linear_{j}`` (MLPHead)           -> ``mlp.{3j}``
   ``input_encoders_{D}``             -> ``input_encoders.{D}``
+  ``heads_{task}_{D}`` (per domain)  -> ``heads_{task}.{D}``
 
 ``state_dict_to_variables`` is the inverse (a linear ``weight`` is told from
 a BatchNorm one by its rank).
@@ -31,6 +32,9 @@ _HEAD_LINEAR = re.compile(r"linear_(\d+)$")
 _GIN_MLP = {"mlp_0": "gin_conv.nn.0", "mlp_bn": "gin_conv.nn.1",
             "mlp_1": "gin_conv.nn.3"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+# Per-domain pretraining heads of the JAX tree (``heads_<task>_<domain>``).
+_DOMAIN_HEADS = tuple(f"heads_{t}" for t in
+                      ("node_feat_mask", "node_contrast", "graph_contrast", "graph_prop"))
 
 
 def _module_key(name: str) -> str:
@@ -42,6 +46,9 @@ def _module_key(name: str) -> str:
         return f"mlp.{3 * int(m.group(1))}"
     if name.startswith("input_encoders_"):
         return "input_encoders." + name[len("input_encoders_"):]
+    for head in _DOMAIN_HEADS:
+        if name.startswith(head + "_"):
+            return f"{head}.{name[len(head) + 1:]}"
     return _GIN_MLP.get(name, name)
 
 
@@ -90,8 +97,8 @@ def _flax_path(key: str):
         elif part == "mlp" and nxt is not None:
             path.append(f"linear_{int(nxt) // 3}")
             i += 2
-        elif part == "input_encoders" and nxt is not None:
-            path.append(f"input_encoders_{nxt}")
+        elif (part == "input_encoders" or part in _DOMAIN_HEADS) and nxt is not None:
+            path.append(f"{part}_{nxt}")
             i += 2
         elif part == "gin_conv":
             if leaf == "eps" and nxt is None:

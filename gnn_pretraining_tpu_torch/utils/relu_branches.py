@@ -12,12 +12,17 @@ counts the units where it would have chosen otherwise (the flips).
 
 Every ReLU of the models in this package is an ``nn.ReLU`` module; the hooks
 follow call order, so a step that runs two forwards records both.
+
+A max pool is such a kink too: where two nodes reach a graph's max within
+rounding, either may win, and the gradient goes to the winner. ``max_pool``
+records the winners of every ``segment_max`` call of a module (graph
+contrast's pooling) and replays them elsewhere.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import torch
 from torch import nn
@@ -82,3 +87,39 @@ def replay(model: nn.Module, branches) -> Iterator[List[int]]:
             h.remove()
     if queue:
         raise RuntimeError(f"{len(queue)} recorded ReLU calls were not replayed")
+
+
+@contextlib.contextmanager
+def max_pool(module, record: Optional[list] = None,
+             replay: Optional[list] = None) -> Iterator[List[int]]:
+    """Within the block, each call of ``module.segment_max`` appends its
+    winners (per segment and feature, the valid rows equal to the max) to
+    ``record``; or, with ``replay``, returns the mean of the data over the
+    next recorded winners, so that value and gradient go where they went in
+    the recorded model. The yielded list counts, per replayed call, the
+    entries where the model's own winners differ."""
+    real = module.segment_max
+    flips: List[int] = []
+
+    def winners(data, ids, num, mask):
+        data = data.detach()
+        return (data == real(data, ids, num, mask)[ids.long()]) & mask.bool()[:, None]
+
+    def recording(data, ids, num, mask):
+        record.append(winners(data, ids, num, mask))
+        return real(data, ids, num, mask)
+
+    def replaying(data, ids, num, mask):
+        win = replay.pop(0)
+        flips.append(int((win != winners(data, ids, num, mask)).sum()))
+        ids = ids.long()
+        w = win.to(data.dtype)
+        count = torch.zeros(num, data.shape[1], device=data.device).index_add_(0, ids, w)
+        w = w / torch.clamp(count, min=1.0)[ids]
+        return torch.zeros(num, data.shape[1], device=data.device).index_add_(0, ids, data * w)
+
+    module.segment_max = recording if record is not None else replaying
+    try:
+        yield flips
+    finally:
+        module.segment_max = real

@@ -16,6 +16,11 @@ import torch
 from gnn_pretraining_tpu.data import batch as jax_batch
 from gnn_pretraining_tpu_torch.data import batch as torch_batch
 
+# Small CPU shapes: one intra-op thread per test process. The default, a
+# thread per core in every pytest-xdist worker, spends most of its time
+# spinning and starves the other workers.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def store_path(tmp_path_factory):

@@ -23,6 +23,11 @@ from gnn_pretraining_tpu_torch import config as torch_config
 REPO = Path(__file__).resolve().parent.parent
 CONSTANTS = sorted(n for n in dir(jax_config) if n.isupper())
 FORBIDDEN = ("jax", "flax", "msgpack", "gnn_pretraining_tpu")
+# The port's own dispatch values: the JAX package's are TPU crossovers. The
+# fused NT-Xent (K2) takes every single-device NT-Xent on the card until it is
+# redesigned for the H100; its crossover against the plain formula is measured
+# by chip_smoke.py and recorded in PERF.md.
+PORT_DISPATCH = {"FUSED_NTXENT_MIN_ROWS": 0}
 
 
 def _forbidden(module: str) -> bool:
@@ -31,8 +36,10 @@ def _forbidden(module: str) -> bool:
 
 def test_constants_equal_jax():
     assert sorted(n for n in dir(torch_config) if n.isupper()) == CONSTANTS
+    assert set(PORT_DISPATCH) <= set(CONSTANTS)
     for name in CONSTANTS:
-        assert getattr(torch_config, name) == getattr(jax_config, name), name
+        want = PORT_DISPATCH.get(name, getattr(jax_config, name))
+        assert getattr(torch_config, name) == want, name
 
 
 def test_forbidden_prefix_spares_the_port():

@@ -35,6 +35,11 @@ from gnn_pretraining_tpu_torch.finetune import finetune as ft
 from gnn_pretraining_tpu_torch.ops.spmm import build_dense_adjacency
 from gnn_pretraining_tpu_torch.utils.convert import load_variables
 
+# Small CPU shapes: one intra-op thread per test process. The default, a
+# thread per core in every pytest-xdist worker, spends most of its time
+# spinning and starves the other workers.
+torch.set_num_threads(1)
+
 EPOCHS = 3
 CELLS = [("PTC_MR", "full_finetune", "b1"), ("Cora_NC", "full_finetune", "b1"),
          ("CiteSeer_LP", "full_finetune", "b1"), ("ENZYMES", "linear_probe", "b2")]

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import torch
 
 from gnn_pretraining_tpu import config as jax_config
 from gnn_pretraining_tpu.finetune import finetune as jax_ft
@@ -27,6 +28,11 @@ from gnn_pretraining_tpu_torch.utils.convert import (
     model_variables,
     variables_to_state_dict,
 )
+
+# Small CPU shapes: one intra-op thread per test process. The default, a
+# thread per core in every pytest-xdist worker, spends most of its time
+# spinning and starves the other workers.
+torch.set_num_threads(1)
 
 CELLS = [("ENZYMES", "linear_probe"), ("ENZYMES", "full_finetune"),
          ("Cora_NC", "full_finetune")]

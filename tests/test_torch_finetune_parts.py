@@ -36,6 +36,11 @@ from gnn_pretraining_tpu_torch.ops.topk import exact_top_k
 from gnn_pretraining_tpu_torch.utils import checkpoint, losses
 from gnn_pretraining_tpu_torch.utils._msgpack import packb, unpackb
 
+# Small CPU shapes: one intra-op thread per test process. The default, a
+# thread per core in every pytest-xdist worker, spends most of its time
+# spinning and starves the other workers.
+torch.set_num_threads(1)
+
 
 def t(a):
     return torch.from_numpy(np.asarray(a))

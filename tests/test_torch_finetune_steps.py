@@ -60,6 +60,11 @@ from gnn_pretraining_tpu_torch.utils.convert import (
     state_dict_to_variables,
 )
 
+# Small CPU shapes: one intra-op thread per test process. The default, a
+# thread per core in every pytest-xdist worker, spends most of its time
+# spinning and starves the other workers.
+torch.set_num_threads(1)
+
 FAMILIES = {"PTC_MR": 8, "ENZYMES": 8, "Cora_NC": -1, "CiteSeer_LP": 32}
 LP_NUM_HARD = 10                       # of 32 negatives: 22 come from the Gumbel draw
 GRAD_TOL = {"pallas": dict(rtol=1e-3, atol=1e-5), "dense": dict(rtol=1e-4, atol=1e-5)}

@@ -34,6 +34,11 @@ from gnn_pretraining_tpu_torch.models import (
 from gnn_pretraining_tpu_torch.ops.spmm import build_dense_adjacency
 from gnn_pretraining_tpu_torch.utils.convert import variables_to_state_dict
 
+# Small CPU shapes: one intra-op thread per test process. The default, a
+# thread per core in every pytest-xdist worker, spends most of its time
+# spinning and starves the other workers.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 N, N_VALID, E, E_VALID = 48, 40, 160, 140
 KEY = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}

@@ -39,6 +39,11 @@ from gnn_pretraining_tpu_torch import (
 from gnn_pretraining_tpu_torch.models import gnn as torch_gnn
 from gnn_pretraining_tpu_torch.utils.convert import variables_to_state_dict
 
+# Small CPU shapes: one intra-op thread per test process. The default, a
+# thread per core in every pytest-xdist worker, spends most of its time
+# spinning and starves the other workers.
+torch.set_num_threads(1)
+
 ARTIFACT = config.ARTIFACTS_DIR / "transfer" / "backbone_b2_42.msgpack"
 REPLAY = config.ARTIFACTS_DIR / "serving" / "ENZYMES_embed_b2.stablehlo"
 GRAPH = ("x", "node_mask", "senders", "receivers", "edge_mask")

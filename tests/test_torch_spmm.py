@@ -20,6 +20,11 @@ from gnn_pretraining_tpu.ops import segment as jax_segment
 from gnn_pretraining_tpu.ops import spmm as jax_spmm
 from gnn_pretraining_tpu_torch.ops import segment, spmm
 
+# Small CPU shapes: one intra-op thread per test process. The default, a
+# thread per core in every pytest-xdist worker, spends most of its time
+# spinning and starves the other workers.
+torch.set_num_threads(1)
+
 # Max |port - jax| / max |jax| per mode (tests/test_ops.py:71-90).
 MODE_TOL = {"highest": 1e-5, "split": 1e-3, "bf16": 5e-2}
 

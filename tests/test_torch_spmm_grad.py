@@ -21,6 +21,11 @@ import torch
 from gnn_pretraining_tpu.ops import spmm as jax_spmm
 from gnn_pretraining_tpu_torch.ops import spmm
 
+# Small CPU shapes: one intra-op thread per test process. The default, a
+# thread per core in every pytest-xdist worker, spends most of its time
+# spinning and starves the other workers.
+torch.set_num_threads(1)
+
 MAX_REL = {"split": 2e-3, "bf16": 5e-2}
 
 
