@@ -41,12 +41,30 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 views, PCGrad order, dropout draws and ReLU branches; then
                 pretrain() for 1 epoch and finetune() on ENZYMES for 1 epoch
                 from the checkpoint it wrote;
-  9. timing  -- CUDA-event medians of K1 fwd and bwd and of the three K2
-                kernels, their plain versions, one PyTorch call for the same
-                function where there is one, each serving forward and each
-                train step, and the K2 Function against the plain NT-Xent
-                formula (forward + backward) over a range of rows;
- 10. profile -- each serving forward's and train step's device time by kernel
+  9. csr     -- K3-fwd and K3-bwd against their plain version in every
+                precision mode on the tiles of Cora_NC and Cora_LP at 6x
+                scale after RCM (data/processed_6x, 16248 nodes, the stores
+                the csr path trains on), a banded 16384-node graph, a ragged
+                300-node graph with empty tile rows, a pad_to case and the
+                2712-node Cora store of phase 5, where K3 must also equal K1
+                on the same graph; the autograd Function's dH and d-eps
+                against autograd through the COO f32 aggregation;
+ 10. csr train and entry -- one fine-tune train step on K3 per csr cell
+                (Cora_NC full_finetune and linear_probe, Cora_LP
+                full_finetune, on the 6x stores, scheme b1), each counted at
+                its K3 fwd/bwd launches with no K1 launch and held (loss,
+                gradients, post-step parameters) against a twin on the coo
+                f32 path on the same permuted graph with the same dropout
+                seed, ReLU branches and negatives; then finetune(
+                aggregation="csr") for 2 epochs on Cora_NC and 1 on Cora_LP;
+ 11. timing  -- CUDA-event medians of K1 fwd and bwd, of the three K2
+                kernels and of K3 fwd and bwd (Cora_NC 6x and the banded
+                graph), their plain versions, one PyTorch call for the same
+                function where there is one (addmm, cuSPARSE for K3), each
+                serving forward and each train step, csr ones included, and
+                the K2 Function against the plain NT-Xent formula (forward +
+                backward) over a range of rows;
+ 12. profile -- each serving forward's and train step's device time by kernel
                 (torch.profiler) and the share of its time the card idles.
 
 Then the card's nvidia-smi line, a {"kernels": [...]} line, and last
@@ -91,9 +109,31 @@ TRAIN_CELLS = {("ENZYMES", "full_finetune"): (5, 4),
                ("ENZYMES", "linear_probe"): (5, 0),
                ("Cora_NC", "full_finetune"): (5, 5),
                ("Cora_LP", "full_finetune"): (10, 5)}
-ENTRY_CELLS = (("ENZYMES", "full_finetune"), ("Cora_NC", "full_finetune"),
-               ("Cora_LP", "full_finetune"))
+# Block-CSR (K3) cells on the tracked stores of Cora at 6x scale (16248
+# nodes: past the dense limit, where csr is the only kernel route). Per
+# train step K3 runs fwd once per GIN layer and forward pass, bwd once per
+# layer whose input needs a gradient: the linear probe freezes the backbone
+# but trains the encoder, so its gradient still crosses every layer.
+CSR_STORES = HERE / "data" / "processed_6x"
+CSR_TRAIN_CELLS = {("Cora_NC", "full_finetune"): (5, 5),
+                   ("Cora_NC", "linear_probe"): (5, 5),
+                   ("Cora_LP", "full_finetune"): (10, 5)}
+CSR_ENTRY_CELLS = (("Cora_NC", "full_finetune", 2), ("Cora_LP", "full_finetune", 1))
+CELL_LAUNCHES = {"pallas": TRAIN_CELLS, "csr": CSR_TRAIN_CELLS}
+CELL_KERNELS = {"pallas": ("gin_spmm_fwd", "gin_spmm_bwd"),
+                "csr": ("csr_spmm_fwd", "csr_spmm_bwd")}
+TWIN = {"pallas": "dense", "csr": "coo"}
+CELL_SCHEME = {"pallas": "b2", "csr": "b1"}     # b1: from scratch, no checkpoint
+# K3's checks: the 6x Cora graphs after RCM, the banded graph of the JAX
+# package's crossover scans, a ragged graph with empty tile rows, a pad_to
+# case, and the 2712-node Cora store, where K3 must also equal K1.
+CSR_BANDED = dict(n=16384, e=65536, band=256)
+CSR_RAGGED = dict(n=300, e=200, f=40, reach=100)      # edges among the first 100
+CSR_PADDED = dict(n=520, e=2000, masked=200, pad_to=64, f=72)
 ENTRY_EPOCHS = 2
+ENTRY_CELLS = (("ENZYMES", "full_finetune", ENTRY_EPOCHS),
+               ("Cora_NC", "full_finetune", ENTRY_EPOCHS),
+               ("Cora_LP", "full_finetune", ENTRY_EPOCHS))
 # Train step on K1 (split) vs its twin on the dense f32 path: loss relative;
 # gradients as the L2 norm of the difference over the L2 norm of the model's
 # gradient (all leaves, and the head's alone), and as max |diff| over its
@@ -115,7 +155,8 @@ CORA_UNDIRECTED_EDGES, CORA_SPLIT = 5278, (140, 500, 1000)
 # runs once per (task, domain) NT-Xent, fwd and both bwd kernels.
 PRETRAIN_SCHEME = "s2"
 PRETRAIN_STEP_LAUNCHES = {"gin_spmm_fwd": 80, "gin_spmm_bwd": 80, "ntxent_fwd": 8,
-                          "ntxent_bwd_rows": 8, "ntxent_bwd_cols": 8}
+                          "ntxent_bwd_rows": 8, "ntxent_bwd_cols": 8,
+                          "csr_spmm_fwd": 0, "csr_spmm_bwd": 0}
 PRETRAIN_ENTRY_EPOCHS = 1
 # K2 vs its plain versions: the summed loss relative, each dZ term as max
 # |diff| over max |ref| (both f32 on the card; sums in another order).
@@ -426,43 +467,58 @@ def write_stores(processed_dir: Path) -> dict:
     return sizes
 
 
-def train_cell(domain: str, strategy: str, processed_dir: Path, device):
-    """One train step of the cell on K1, checked against its dense twin.
-    Returns (name, step, batch): step() runs one more train step on K1 and
-    batch is the padded graph whose adjacency K1 was given."""
+def train_cell(domain: str, strategy: str, processed_dir: Path, device,
+               kernel: str = "pallas"):
+    """One train step of the cell on K1 (``kernel="pallas"``) or K3
+    (``"csr"``), checked against its twin: the dense f32 path, or for csr
+    the coo f32 path on the same RCM-permuted graph. Returns (name, step,
+    batch): step() runs one more train step on the kernel and batch is the
+    padded graph the loader gave."""
     from gnn_pretraining_tpu_torch import config
     from gnn_pretraining_tpu_torch.data.loaders import create_finetune_arrays
     from gnn_pretraining_tpu_torch.finetune import finetune as ft
-    from gnn_pretraining_tpu_torch.ops.spmm import gin_spmm_bwd, gin_spmm_fwd
+    from gnn_pretraining_tpu_torch.finetune.runners import csr_graph_aux
     from gnn_pretraining_tpu_torch.utils import relu_branches
 
-    cfg = config.FinetuneConfig(domain, strategy, "b2", 42)
+    cfg = config.FinetuneConfig(domain, strategy, CELL_SCHEME[kernel], 42)
     data = {"train": create_finetune_arrays(domain, "train", cfg.batch_size,
                                             processed_dir)}
-    sides = {}
-    for aggregation in ("pallas", "dense"):
-        model = ft.build_finetune_model(cfg, aggregation, device)
-        if sides:
-            model.load_state_dict(sides["pallas"][0].state_dict())
-        model.seed_dropout(SEED)
-        optimizer, labels, lrs = ft.create_finetune_optimizer(model, cfg)
-        train, _, batches, _ = ft.build_steps(cfg, model, optimizer, labels, data, device)
-        sides[aggregation] = (model, train, next(iter(batches()))[1], labels, lrs)
+    model = ft.build_finetune_model(cfg, kernel, device)
+    model.seed_dropout(SEED)
+    optimizer, labels, lrs = ft.create_finetune_optimizer(model, cfg)
+    train, _, batches, _ = ft.build_steps(cfg, model, optimizer, labels, data, device)
+    args = next(iter(batches()))[1]
+    twin = ft.build_finetune_model(cfg, TWIN[kernel], device)
+    twin.load_state_dict(model.state_dict())
+    twin.seed_dropout(SEED)
+    twin_optimizer, _, _ = ft.create_finetune_optimizer(twin, cfg)
+    if kernel == "pallas":
+        twin_train = ft.build_steps(cfg, twin, twin_optimizer, labels, data, device)[0]
+    else:
+        # The graph the csr steps run on; ``args`` are already in its labels.
+        graph = csr_graph_aux(data["train"].graph)[0].to(device)
+        if cfg.task_type == "node_classification":
+            twin_train = ft.make_nc_steps(twin, cfg, twin_optimizer, labels, graph, None)[0]
+        else:
+            twin_train = ft.make_lp_steps(twin, cfg, twin_optimizer, labels, graph,
+                                          None, None, 0)[0]
 
-    model, train, args, labels, lrs = sides["pallas"]
+    kernels = counters()
     start = {k: v.clone() for k, v in model.state_dict().items()}
-    fwd0, bwd0 = gin_spmm_fwd.launches, gin_spmm_bwd.launches
+    before = {name: c.launches for name, c in kernels.items()}
     with relu_branches.record(model) as branches:
         out = train(*args)
-    launched = (gin_spmm_fwd.launches - fwd0, gin_spmm_bwd.launches - bwd0)
-    twin, twin_train, twin_args, _, _ = sides["dense"]
+    counts = {name: c.launches - before[name] for name, c in kernels.items()}
+    launched = tuple(counts[name] for name in CELL_KERNELS[kernel])
     extra = ({"negatives": train.last_negatives}
              if cfg.task_type == "link_prediction" else {})
     with relu_branches.replay(twin, branches) as flips:
-        twin_out = twin_train(*twin_args, **extra)
+        twin_out = twin_train(*args, **extra)
     units = sum(b.numel() for b in branches)
-    if (gin_spmm_fwd.launches - fwd0, gin_spmm_bwd.launches - bwd0) != launched:
-        raise AssertionError("the dense twin launched K1")
+    if any(c.launches - before[name] != counts[name] for name, c in kernels.items()):
+        raise AssertionError("the twin launched a kernel")
+    others = {name: n for name, n in counts.items()
+              if n and name not in CELL_KERNELS[kernel]}
     torch.cuda.synchronize()
 
     loss, twin_loss = float(out[0]), float(twin_out[0])
@@ -505,20 +561,22 @@ def train_cell(domain: str, strategy: str, processed_dir: Path, device):
     p_err = p_err_sum / max(clear_count, 1)
     stats_moved = any(not torch.equal(v, start[k]) for k, v in model.state_dict().items()
                       if k.endswith("running_mean"))
-    name = f"{domain}/{strategy}"
+    name = f"{domain}/{strategy}" + ("" if kernel == "pallas" else f" {kernel}")
     batch = (data["train"].batches[0] if cfg.task_type == "graph_classification"
              else data["train"].graph)
-    ok = bool(launched == TRAIN_CELLS[(domain, strategy)] and math.isfinite(loss)
+    expected = CELL_LAUNCHES[kernel][(domain, strategy)]
+    ok = bool(launched == expected and not others and math.isfinite(loss)
               and abs(loss - twin_loss) <= TRAIN_LOSS_TOL * abs(twin_loss)
               and g_err <= TRAIN_GRAD_TOL * g_max and g_l2_err <= TRAIN_GRAD_TOL
               and head_l2_err <= TRAIN_GRAD_TOL
               and sum(flips) <= RELU_FLIP_SHARE * units
               and p_err <= 0.05
               and clear_count > 100 and moved > 0.5 and stats_moved)
-    emit({"phase": "train", "cell": name, "k1_nodes_pad": batch.num_nodes,
-          "k1_launches_fwd_bwd": list(launched),
-          "expected": list(TRAIN_CELLS[(domain, strategy)]), "loss": loss,
-          "loss_dense": twin_loss, "grad_max_err_over_max": g_err / g_max,
+    emit({"phase": "train", "cell": name, "nodes_pad": batch.num_nodes,
+          "kernel": CELL_KERNELS[kernel], "launches_fwd_bwd": list(launched),
+          "other_launches": others, "expected": list(expected), "loss": loss,
+          "twin": TWIN[kernel], "loss_twin": twin_loss,
+          "grad_max_err_over_max": g_err / g_max,
           "grad_l2_err_over_l2": g_l2_err,
           "head_grad_l2_err_over_l2": head_l2_err, "grad_tol": TRAIN_GRAD_TOL,
           "relu_units": units, "relu_flips_replayed": sum(flips),
@@ -530,26 +588,27 @@ def train_cell(domain: str, strategy: str, processed_dir: Path, device):
     return name, (lambda: train(*args)), batch.to(device)
 
 
-def train_phase(device, processed_dir: Path):
+def train_phase(device, processed_dir: Path, kernel: str = "pallas"):
     """name -> step() and name -> the step's padded graph, per train cell."""
-    cells = [train_cell(domain, strategy, processed_dir, device)
-             for domain, strategy in TRAIN_CELLS]
+    cells = [train_cell(domain, strategy, processed_dir, device, kernel)
+             for domain, strategy in CELL_LAUNCHES[kernel]]
     return ({name: step for name, step, _ in cells},
             {name: batch for name, _, batch in cells})
 
 
-def entry_phase(processed_dir: Path, out_root: Path) -> None:
+def entry_phase(processed_dir: Path, out_root: Path, cells=ENTRY_CELLS,
+                aggregation: str = "pallas") -> None:
     """finetune() end to end: finite losses, the metric keys, the best
     checkpoint on disk and reloaded for the test pass."""
     from gnn_pretraining_tpu_torch import config
     from gnn_pretraining_tpu_torch.finetune.finetune import finetune
     from gnn_pretraining_tpu_torch.utils.checkpoint import load_checkpoint
 
-    for domain, strategy in ENTRY_CELLS:
-        cfg = config.FinetuneConfig(domain, strategy, "b2", 42)
+    for domain, strategy, epochs in cells:
+        cfg = config.FinetuneConfig(domain, strategy, CELL_SCHEME[aggregation], 42)
         t0 = time.perf_counter()
-        result = finetune(cfg, aggregation="pallas", processed_dir=processed_dir,
-                          epochs=ENTRY_EPOCHS, out_root=out_root)
+        result = finetune(cfg, aggregation=aggregation, processed_dir=processed_dir,
+                          epochs=epochs, out_root=out_root)
         seconds = time.perf_counter() - t0
         log = out_root / "metrics" / config.FINETUNE_PROJECT_NAME / f"{cfg.run_name}.jsonl"
         rows = [json.loads(line) for line in open(log)]
@@ -563,8 +622,9 @@ def entry_phase(processed_dir: Path, out_root: Path) -> None:
                   and any(sel in r for r in rows)
                   and any("train/gradients/model_grad_norm" in r for r in rows)
                   and ckpt["meta"]["epoch"] == result["test/convergence_epochs"]
-                  and 1 <= ckpt["meta"]["epoch"] <= ENTRY_EPOCHS)
-        emit({"phase": "entry", "cell": cfg.run_name, "seconds": seconds,
+                  and 1 <= ckpt["meta"]["epoch"] <= epochs)
+        emit({"phase": "entry", "cell": cfg.run_name, "aggregation": aggregation,
+              "epochs": epochs, "seconds": seconds,
               "train_steps": sum("train/loss" in r for r in rows),
               "best_epoch": ckpt["meta"]["epoch"], "test_loss": result["test/loss"],
               "test_accuracy": result["test/accuracy"],
@@ -695,9 +755,11 @@ def counters() -> dict:
     """name -> the launch-counting wrapper of every kernel of the port."""
     from gnn_pretraining_tpu_torch.ops import ntxent
     from gnn_pretraining_tpu_torch.ops.spmm import gin_spmm_bwd, gin_spmm_fwd
+    from gnn_pretraining_tpu_torch.ops.spmm_csr import csr_spmm_bwd, csr_spmm_fwd
 
     return {"gin_spmm_fwd": gin_spmm_fwd, "gin_spmm_bwd": gin_spmm_bwd,
-            **{name: getattr(ntxent, name) for name in K2_COUNTERS}}
+            **{name: getattr(ntxent, name) for name in K2_COUNTERS},
+            "csr_spmm_fwd": csr_spmm_fwd, "csr_spmm_bwd": csr_spmm_bwd}
 
 
 def pretrain_step_phase(device, processed_dir: Path):
@@ -1101,6 +1163,223 @@ def ntxent_timing_phase(device, shapes, errors, launches):
     return kernels, crossover
 
 
+def csr_cases(processed_dir: Path) -> list:
+    """K3's check shapes: per case its BlockCSR (on the CPU), the feature
+    width, the edges in the tiles' labelling (for the COO reference and the
+    library call), whether K1 is compared on it and whether it is timed."""
+    from gnn_pretraining_tpu_torch.data.loaders import create_finetune_arrays
+    from gnn_pretraining_tpu_torch.finetune.runners import csr_graph_aux
+    from gnn_pretraining_tpu_torch.ops.spmm_csr import (
+        build_block_csr,
+        synthetic_banded_edges,
+    )
+
+    rng = np.random.default_rng(SEED + 6)
+    cases = []
+
+    def add(label, bsr, f, s, r, m, k1=False, timed=False):
+        cases.append({"label": label, "bsr": bsr, "f": f, "edges": (s, r, m),
+                      "k1": k1, "timed": timed})
+
+    for domain in ("Cora_NC", "Cora_LP"):
+        g = create_finetune_arrays(domain, "train", -1, CSR_STORES).graph
+        graph, bsr, _ = csr_graph_aux(g)
+        add(f"{domain} x6 after RCM", bsr, 256, graph.senders.numpy(),
+            graph.receivers.numpy(), graph.edge_mask.numpy(), timed=domain == "Cora_NC")
+    b = CSR_BANDED
+    s, r = synthetic_banded_edges(b["n"], b["e"], b["band"], np.random.default_rng(0))
+    m = np.ones(b["e"], np.float32)
+    add(f"banded {b['n']}", build_block_csr(s, r, m, b["n"]), 256, s, r, m, timed=True)
+    c = CSR_RAGGED
+    s = rng.integers(0, c["reach"], c["e"]).astype(np.int32)
+    r = rng.integers(0, c["reach"], c["e"]).astype(np.int32)
+    m = np.ones(c["e"], np.float32)
+    add(f"ragged {c['n']}, empty tile rows", build_block_csr(s, r, m, c["n"]), c["f"], s, r, m)
+    c = CSR_PADDED
+    s = rng.integers(0, c["n"], c["e"]).astype(np.int32)
+    r = rng.integers(0, c["n"], c["e"]).astype(np.int32)
+    m = np.ones(c["e"], np.float32)
+    m[rng.choice(c["e"], c["masked"], replace=False)] = 0.0
+    add(f"{c['n']} nodes, pad_to {c['pad_to']}",
+        build_block_csr(s, r, m, c["n"], pad_to=c["pad_to"]), c["f"], s, r, m)
+    g = create_finetune_arrays("Cora_NC", "train", -1, processed_dir).graph
+    s, r, m = g.senders.numpy(), g.receivers.numpy(), g.edge_mask.numpy()
+    add(f"Cora {g.num_nodes} (K1's graph)", build_block_csr(s, r, m, g.num_nodes), 256,
+        s, r, m, k1=True)
+    emit({"phase": "csr", "cases": [{"case": c["label"], "nodes": c["bsr"].num_nodes,
+                                     "tiles": c["bsr"].nnzb,
+                                     "tiles_t": int(c["bsr"].vals_t.shape[0]),
+                                     "f": c["f"]} for c in cases]})
+    return cases
+
+
+def csr_kernel_phase(device, cases) -> dict:
+    """K3 fwd and bwd against their plain version in every mode, K3 against
+    K1 on K1's graph, and the Function's dH and d-eps against autograd
+    through the COO f32 aggregation."""
+    from gnn_pretraining_tpu_torch.ops.spmm import (
+        build_dense_adjacency,
+        gin_aggregate_coo,
+        gin_spmm_bwd,
+        gin_spmm_fwd,
+    )
+    from gnn_pretraining_tpu_torch.ops.spmm_csr import (
+        csr_matvec_reference,
+        csr_spmm_bwd,
+        csr_spmm_fwd,
+        spmm_csr,
+    )
+
+    rng = np.random.default_rng(SEED + 7)
+    errors = {}
+    for case in cases:
+        label, f = case["label"], case["f"]
+        bsr = case["bsr"].to(device)
+        n = bsr.num_nodes
+        h = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(device)
+        eps = torch.tensor([-0.2], device=device)
+        s, r, m = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in case["edges"])
+        adj = (build_dense_adjacency(s, r, m, n, dtype=torch.bfloat16)
+               if case["k1"] else None)
+        pairs = {"csr_spmm_fwd": (csr_spmm_fwd, (bsr.vals, bsr.rows, bsr.cols), gin_spmm_fwd),
+                 "csr_spmm_bwd": (csr_spmm_bwd, (bsr.vals_t, bsr.rows_t, bsr.cols_t),
+                                  gin_spmm_bwd)}
+        for mode, tol in KERNEL_TOL.items():
+            for name, (kernel, tiles, k1) in pairs.items():
+                out = kernel(bsr, h, eps, mode)
+                ref = csr_matvec_reference(*tiles, h, eps, mode, n)
+                k1_rel = (float((out - k1(adj, h, eps, mode)).abs().max() / ref.abs().max())
+                          if adj is not None else None)
+                torch.cuda.synchronize()
+                abs_err = float((out - ref).abs().max())
+                rel = abs_err / float(ref.abs().max())
+                ok = bool(rel <= tol and torch.isfinite(out).all()
+                          and (k1_rel is None or k1_rel <= tol))
+                emit({"phase": "csr", "kernel": name, "case": label, "n": n, "f": f,
+                      "tiles": bsr.nnzb, "mode": mode, "max_abs_err": abs_err,
+                      "max_rel_err": rel, "k1_max_rel_diff": k1_rel, "tol": tol, "ok": ok})
+                if not ok:
+                    raise AssertionError(f"{name} {mode} on {label}: relative error {rel}, "
+                                         f"against K1 {k1_rel} > {tol}")
+                errors[(name, label, mode)] = abs_err
+
+        # The Function's wiring: dH from K3 over the transposed tiles, d-eps
+        # from the reduction, against autograd through the COO aggregation.
+        up = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(device)
+        grads = []
+        for aggregate in (lambda h_, e_: spmm_csr(bsr, h_, e_, "highest"),
+                          lambda h_, e_: gin_aggregate_coo(h_, s, r, m, e_)):
+            h_, e_ = h.clone().requires_grad_(), eps.clone().requires_grad_()
+            aggregate(h_, e_).backward(up.t().contiguous().t())   # a strided gradient
+            grads.append((h_.grad, e_.grad))
+        torch.cuda.synchronize()
+        (dh, de), (dh_ref, de_ref) = grads
+        rel_h = float((dh - dh_ref).abs().max() / dh_ref.abs().max())
+        rel_e = float((de - de_ref).abs().max() / de_ref.abs().max())
+        ok = rel_h <= FUNCTION_TOL and rel_e <= FUNCTION_TOL
+        emit({"phase": "csr", "function": "spmm_csr", "case": label, "n": n, "f": f,
+              "dh_max_rel_err": rel_h, "deps_max_rel_err": rel_e, "tol": FUNCTION_TOL,
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"spmm_csr Function on {label}: dH {rel_h}, d-eps {rel_e}")
+    return errors
+
+
+def csr_bound(tiles: int, n: int, f: int) -> dict:
+    """Least time for split-mode K3 on the H100 over this graph's tiles: two
+    bf16 passes of 2 * tiles * 128 * 128 * F operations, against the f32
+    tiles, their column and row indices, H and out each moved once;
+    ``bound_f32_simt_ms`` at the f32 peak outside the tensor cores, where
+    this kernel runs its products."""
+    n_rows = -(-n // 128)
+    ops = 2 * 2 * tiles * 128 * 128 * f
+    nbytes = 4 * tiles * 128 * 128 + 4 * tiles + 4 * (n_rows + 1) + 4 * n * f * 2 + 4
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_f32_simt_ms": max(ops / PEAK_F32_FLOPS * 1e3, t_bytes),
+            "operations": ops, "bytes": nbytes}
+
+
+K3_ROWS = {name: {"replaces": "gnn_pretraining_tpu/ops/spmm_csr.py:205",
+                  "library_call": f"torch.sparse.addmm({x}, {a}, {x}, beta=1+eps), "
+                                  f"{a} a sparse CSR tensor (cuSPARSE)"}
+           for name, x, a in (("csr_spmm_fwd", "h", "A"), ("csr_spmm_bwd", "g", "A^T"))}
+
+
+def csr_timing_phase(device, cases, errors, launches) -> list:
+    """K3 fwd and bwd at the timed cases (the main row is Cora_NC x6 after
+    RCM): CUDA-event medians of the kernel, its plain version and one
+    cuSPARSE call for the same function, beside the bound."""
+    from gnn_pretraining_tpu_torch.ops.spmm_csr import (
+        csr_matvec_reference,
+        csr_spmm_bwd,
+        csr_spmm_fwd,
+    )
+
+    rng = np.random.default_rng(SEED + 8)
+    entries = {name: [] for name in K3_ROWS}
+    for case in (c for c in cases if c["timed"]):
+        bsr, f = case["bsr"].to(device), case["f"]
+        n = bsr.num_nodes
+        h = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(device)
+        eps = torch.tensor([0.1], device=device)
+        beta = 1.0 + 0.1
+        s, r, m = (torch.from_numpy(np.ascontiguousarray(a)).to(device).long()
+                   for a in case["edges"])
+
+        def csr_matrix(dst, src):
+            return torch.sparse_coo_tensor(torch.stack([dst, src]), m.float(), (n, n)
+                                           ).coalesce().to_sparse_csr()
+
+        a_csr, a_t_csr = csr_matrix(r, s), csr_matrix(s, r)     # made outside the timing
+        calls = {
+            "csr_spmm_fwd": (lambda: csr_spmm_fwd(bsr, h, eps, "split"),
+                             lambda: csr_matvec_reference(bsr.vals, bsr.rows, bsr.cols, h,
+                                                          eps, "split", n),
+                             lambda: torch.sparse.addmm(h, a_csr, h, beta=beta)),
+            "csr_spmm_bwd": (lambda: csr_spmm_bwd(bsr, h, eps, "split"),
+                             lambda: csr_matvec_reference(bsr.vals_t, bsr.rows_t, bsr.cols_t,
+                                                          h, eps, "split", n),
+                             lambda: torch.sparse.addmm(h, a_t_csr, h, beta=beta)),
+        }
+        for name, (kernel, plain, library) in calls.items():
+            got, want = kernel(), library()
+            torch.cuda.synchronize()
+            lib_rel = float((got - want).abs().max() / want.abs().max())
+            if lib_rel > KERNEL_TOL["split"]:
+                raise AssertionError(f"{name} and cuSPARSE part on {case['label']}: {lib_rel}")
+            tiles = bsr.nnzb if name == "csr_spmm_fwd" else int(bsr.vals_t.shape[0])
+            row = {"case": case["label"], "n": n, "f": f, "tiles": tiles, "mode": "split",
+                   "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+                   "library_ms": median_ms(library),
+                   "library_call": K3_ROWS[name]["library_call"],
+                   "library_max_rel_diff": lib_rel,
+                   "max_abs_err": errors[(name, case["label"], "split")],
+                   **csr_bound(tiles, n, f)}
+            emit({"phase": "timing", "kernel": name, **row})
+            entries[name].append(row)
+
+    kernels = []
+    for name, rows in entries.items():
+        main, *also = rows                      # Cora_NC x6 first, as in ``cases``
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "gnn_pretraining_tpu_torch/csrc/spmm_csr.cu",
+            "replaces": K3_ROWS[name]["replaces"],
+            "launches": sum(launches[name].values()), "launches_by_path": launches[name],
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "bound_f32_simt_ms": main["bound_f32_simt_ms"],
+            "at": {k: main[k] for k in ("case", "n", "f", "tiles", "mode")},
+            "also": [{k: e[k] for k in ("case", "tiles", "ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by", "max_abs_err")}
+                     for e in also],
+        })
+    return kernels
+
+
 def profile_phase(calls, event_ms) -> None:
     """Where a serving forward's or a train step's time goes: device time by
     kernel from torch.profiler over PROFILE_REPS calls, and the idle share of
@@ -1128,11 +1407,13 @@ def profile_phase(calls, event_ms) -> None:
         k1 = {d: sum(ms for key, ms, _ in kernels if f"gin_spmm_{d}_kernel" in key)
               for d in ("fwd", "bwd")}
         k2 = sum(ms for key, ms, _ in kernels if "ntxent_" in key and "_kernel" in key)
+        k3 = sum(ms for key, ms, _ in kernels if "csr_spmm_kernel" in key)
         emit({"phase": "profile", "call": name, "event_ms": event_ms[name],
               "device_busy_ms": busy if kernels else None,
               "k1_fwd_device_ms": k1["fwd"] if kernels else None,
               "k1_bwd_device_ms": k1["bwd"] if kernels else None,
               "k2_device_ms": k2 if kernels else None,
+              "k3_device_ms": k3 if kernels else None,
               "idle_share": 1 - busy / event_ms[name] if kernels else None,
               "kernels_per_call": sum(c for _, _, c in kernels),
               "top": [[key[:60], ms, c] for key, ms, c in kernels[:6]]})
@@ -1162,6 +1443,8 @@ def main() -> int:
         errors = kernel_phase(device, kernel_shapes(processed_dir))
         k2_shapes = ntxent_shapes(processed_dir)
         k2_errors = ntxent_kernel_phase(device, k2_shapes)
+        k3_cases = csr_cases(processed_dir)
+        k3_errors = csr_kernel_phase(device, k3_cases)
         (forwards, enz, cora, _), serving = run_path(lambda: slice_phase(device))
         (steps, train_graphs), train = run_path(lambda: (
             train_phase(device, processed_dir), entry_phase(processed_dir, out_root))[0])
@@ -1170,13 +1453,25 @@ def main() -> int:
             pretrain_entry_phase(device, processed_dir, out_root))[0])
         pretrain_graph = max(pretrain_loader(processed_dir)[1].sample_step().values(),
                              key=lambda b: b.num_nodes).to(device)
-    launches = {name: {"serving": serving[name], "train": train[name],
-                       "pretrain": pretrain[name]} for name in kernels}
-    unlaunched = [name for name in kernels if pretrain[name] < 1]
+        csr_steps, csr = run_path(lambda: (
+            train_phase(device, CSR_STORES, "csr"),
+            entry_phase(CSR_STORES, out_root, CSR_ENTRY_CELLS, "csr"))[0][0])
+    paths = {"serving": serving, "train": train, "pretrain": pretrain, "csr": csr}
+    launches = {name: {path: counts[name] for path, counts in paths.items()}
+                for name in kernels}
+    k3 = CELL_KERNELS["csr"]
+    unlaunched = [name for name in kernels if name not in k3 and pretrain[name] < 1]
+    unlaunched += [name for name in k3 if csr[name] < 1]
     if min(serving["gin_spmm_fwd"], train["gin_spmm_fwd"], train["gin_spmm_bwd"]) < 1 \
             or unlaunched:
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    strays = {name: [path for path, n in launches[name].items()
+                     if n and (path == "csr") != (name in k3)]
+              for name in kernels if name in k3 or name in CELL_KERNELS["pallas"]}
+    if any(strays.values()):
+        raise AssertionError(f"K1 launched on the csr path or K3 off it: {strays}")
     steps[f"pretrain {PRETRAIN_SCHEME}"] = pretrain_step
+    steps.update(csr_steps)
     calls = {**forwards, **steps}
     both = ("gin_spmm_fwd", "gin_spmm_bwd")
     timed = (("ENZYMES serving bucket", enz, both[:1]),
@@ -1186,10 +1481,11 @@ def main() -> int:
     event_ms, k1_kernels = timing_phase(device, forwards, steps, timed, errors,
                                         launches)
     k2_kernels, _ = ntxent_timing_phase(device, k2_shapes, k2_errors, launches)
+    k3_kernels = csr_timing_phase(device, k3_cases, k3_errors, launches)
     profile_phase(calls, event_ms)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
-    emit({"kernels": k1_kernels + k2_kernels})
+    emit({"kernels": k1_kernels + k2_kernels + k3_kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

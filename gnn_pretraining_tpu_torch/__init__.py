@@ -8,7 +8,9 @@ weights of the JAX transfer artifacts), the fine-tune training path
 (``finetune.finetune``: GC, NC and LP steps and the per-step host loop) and
 multi-task pretraining with the contrastive tasks (``pretrain.pretrain``:
 schemes s2 and b3), on kernel K1, the GIN aggregation, forward and backward,
-and kernel K2, the fused NT-Xent, forward and backward.
+and kernel K2, the fused NT-Xent, forward and backward; and fine-tuning on
+graphs past the dense limit (``aggregation="csr"``) on kernel K3, the
+block-CSR GIN aggregation, forward and backward.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -22,10 +22,14 @@ The model and the optimizer hold the state that the JAX steps thread through
 whole model stays in ``train()`` during a train step, so every BatchNorm's
 running statistics update, frozen or not, as in the JAX step. With
 ``aggregation="pallas"`` every GIN layer runs kernel K1 forward and, for each
-layer whose input needs a gradient, K1 backward.
+layer whose input needs a gradient, K1 backward. With ``aggregation="csr"``
+(node classification and link prediction: one fixed graph, for graphs past
+the dense limit) the graph is RCM-reordered once, its block-CSR tiles are
+built on the host (``finetune.runners.csr_graph_aux``), every node index of
+the splits is remapped, and every GIN layer runs kernel K3 instead.
 
 Left for later: the scan-fused runner's best-epoch replay, the fidelity
-block of the run summary, the multi-device modes and ``aggregation="csr"``.
+block of the run summary and the multi-device modes.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from gnn_pretraining_tpu_torch.finetune.mining import (
     hard_count,
     mine_hard_negatives,
 )
+from gnn_pretraining_tpu_torch.finetune.runners import csr_graph_aux
 from gnn_pretraining_tpu_torch.models.finetune_model import FinetuneGNN
 from gnn_pretraining_tpu_torch.ops.spmm import build_dense_adjacency
 from gnn_pretraining_tpu_torch.utils.checkpoint import (
@@ -189,14 +194,16 @@ def make_gc_steps(model: FinetuneGNN, cfg, optimizer, labels):
     return train_step, eval_step
 
 
-def make_nc_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj):
+def make_nc_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj,
+                  bsr=None):
     """``train_step(node_idx, y)`` / ``eval_step(node_idx, y)`` over one full
-    graph (``graph`` and ``adj`` already on the model's device)."""
+    graph (``graph`` and ``adj`` or ``bsr`` already on the model's device)."""
     binary = config.NUM_CLASSES[cfg.domain_name] == 2
 
     def forward():
         return model(graph.x, graph.node_mask, adj=adj, senders=graph.senders,
-                     receivers=graph.receivers, edge_mask=graph.edge_mask)
+                     receivers=graph.receivers, edge_mask=graph.edge_mask,
+                     bsr=bsr)
 
     def loss_from_logits(logits, node_idx, y):
         sel = logits[node_idx.long()]
@@ -221,7 +228,7 @@ def make_nc_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj):
 
 def make_lp_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj_train,
                   forbidden, num_hard: int,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None, bsr=None):
     """``train_step(pos_edges, edge_mask) -> (loss, y, preds, probs2, mask,
     gnorm)`` and ``eval_step(edges, y, edge_mask)``.
 
@@ -231,7 +238,7 @@ def make_lp_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj_train,
     ``train_step.last_negatives`` holds the pairs the last call scored, so a
     second model can be stepped on exactly the same pairs."""
     kwargs = dict(adj=adj_train, senders=graph.senders,
-                  receivers=graph.receivers, edge_mask=graph.edge_mask)
+                  receivers=graph.receivers, edge_mask=graph.edge_mask, bsr=bsr)
 
     def lp_outputs(z, y):
         probs = torch.sigmoid(z)
@@ -324,7 +331,11 @@ def build_steps(cfg, model: FinetuneGNN, optimizer, labels, data, device):
     """The family's ``(train_step, eval_step, train_batches, eval_batches)``
     for ``data`` (split -> ``create_finetune_arrays`` output): the batch
     iterators yield the steps' positional arguments as device tensors, with
-    the validity mask of the batch as numpy in front."""
+    the validity mask of the batch as numpy in front.
+
+    Under ``csr`` the steps run on the RCM-permuted graph and its tiles
+    (``csr_graph_aux`` of the train graph) and the iterators yield node ids
+    in that labelling."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
 
     if cfg.task_type == "graph_classification":
@@ -338,22 +349,33 @@ def build_steps(cfg, model: FinetuneGNN, optimizer, labels, data, device):
 
         return train_step, eval_step, lambda: batches("train"), batches
 
-    graph = data["train"].graph.to(device)
-    adj = build_dense_adjacency(graph.senders, graph.receivers, graph.edge_mask,
-                                graph.num_nodes, dtype=_adj_dtype(model))
+    g = data["train"].graph
+    adj = bsr = inv = None
+    if model.aggregation == "csr":
+        g, bsr, inv = csr_graph_aux(g)
+        bsr = bsr.to(device)
+    graph = g.to(device)
+    if model.aggregation in ("dense", "pallas"):
+        adj = build_dense_adjacency(graph.senders, graph.receivers,
+                                    graph.edge_mask, graph.num_nodes,
+                                    dtype=_adj_dtype(model))
+
+    def ids(a):
+        """Node ids of the splits in the steps' labelling."""
+        return inv[np.asarray(a)] if inv is not None else a
+
     if cfg.task_type == "node_classification":
         train_step, eval_step = make_nc_steps(model, cfg, optimizer, labels,
-                                              graph, adj)
+                                              graph, adj, bsr)
 
         def batches(split):
             d = data[split]
             for ix, y in zip(d.node_indices, d.labels):
-                yield np.ones(len(y), bool), (t(ix), t(y))
+                yield np.ones(len(y), bool), (t(ids(ix)), t(y))
 
         return train_step, eval_step, lambda: batches("train"), batches
 
-    g = data["train"].graph
-    train_edges = data["train"].train_edges
+    train_edges = ids(data["train"].train_edges)
     real_n = int(g.node_mask.sum())
     forbidden = build_forbidden_mask(g.num_nodes, train_edges,
                                      node_mask=g.node_mask.numpy()).to(device)
@@ -362,17 +384,18 @@ def build_steps(cfg, model: FinetuneGNN, optimizer, labels, data, device):
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed)
     train_step, eval_step = make_lp_steps(model, cfg, optimizer, labels, graph,
-                                          adj, forbidden, num_hard, generator)
+                                          adj, forbidden, num_hard, generator,
+                                          bsr)
 
     def train_batches():
         d = data["train"]
         for e, m in zip(d.edges, d.edge_mask):
-            yield np.concatenate([m, m]) > 0, (t(e), t(m))
+            yield np.concatenate([m, m]) > 0, (t(ids(e)), t(m))
 
     def eval_batches(split):
         d = data[split]
         for e, y, m in zip(d.edges, d.labels, d.edge_mask):
-            yield m > 0, (t(e), t(y), t(m))
+            yield m > 0, (t(ids(e)), t(y), t(m))
 
     return train_step, eval_step, train_batches, eval_batches
 
@@ -394,9 +417,12 @@ def finetune(cfg: config.FinetuneConfig, aggregation: str = "pallas",
     # f32 products stay f32: the miner's similarities and the linears.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if aggregation == "csr":
-        raise NotImplementedError(
-            "block-CSR aggregation (K3) is not ported yet: ROADMAP queue 2")
+    if aggregation == "csr" and cfg.task_type == "graph_classification":
+        # The tiles are built once per graph; these batches change every step.
+        raise ValueError(
+            "aggregation='csr' needs one fixed message-passing graph (node "
+            "classification / link prediction domains); graph-classification "
+            "batches change structure per step — use pallas/coo/dense there")
 
     training_start = time.time()
     epochs = epochs or cfg.epochs
@@ -500,7 +526,7 @@ def main() -> None:
     parser.add_argument("--seed", type=int, required=True)
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--aggregation", type=str, default="pallas",
-                        choices=["dense", "pallas", "coo"])
+                        choices=["dense", "pallas", "coo", "csr"])
     parser.add_argument("--processed_dir", type=str, default=None)
     parser.add_argument("--out_root", type=str, default=None)
     parser.add_argument("--device", type=str, default=None,

@@ -30,7 +30,8 @@ H = config.GNN_HIDDEN_DIM
 
 class FinetuneGNN(nn.Module):
     """``aggregation``: ``"pallas"`` is kernel K1 (its plain version on the
-    CPU), ``"dense"`` one f32 matmul, ``"coo"`` gather + scatter-add.
+    CPU), ``"dense"`` one f32 matmul, ``"coo"`` gather + scatter-add,
+    ``"csr"`` kernel K3 over the ``BlockCSR`` passed as ``bsr``.
 
     Train-mode dropout draws from ``self.dropout`` (a ``DropoutSource`` on
     the model's device, seeded 0 until ``seed_dropout``)."""
@@ -61,18 +62,19 @@ class FinetuneGNN(nn.Module):
         self.dropout.seed(seed)
 
     def embed(self, x, node_mask, *, adj=None, senders=None, receivers=None,
-              edge_mask=None) -> torch.Tensor:
+              edge_mask=None, bsr=None) -> torch.Tensor:
         """Encoder + backbone → [N, 256] node embeddings."""
         h0 = self.input_encoder(x, node_mask)
         return self.gnn_backbone(h0, node_mask, adj=adj, senders=senders,
-                                 receivers=receivers, edge_mask=edge_mask)
+                                 receivers=receivers, edge_mask=edge_mask,
+                                 bsr=bsr)
 
     def forward(self, x, node_mask, *, adj=None, senders=None, receivers=None,
-                edge_mask=None, node_graph=None, num_graphs: Optional[int] = None,
-                score_senders=None, score_receivers=None,
-                return_logits: bool = False) -> torch.Tensor:
+                edge_mask=None, bsr=None, node_graph=None,
+                num_graphs: Optional[int] = None, score_senders=None,
+                score_receivers=None, return_logits: bool = False) -> torch.Tensor:
         h = self.embed(x, node_mask, adj=adj, senders=senders,
-                       receivers=receivers, edge_mask=edge_mask)
+                       receivers=receivers, edge_mask=edge_mask, bsr=bsr)
         if self.task_type == "graph_classification":
             graph_emb = segment_mean(h, node_graph, num_graphs, node_mask)
             return self.classification_head(graph_emb)

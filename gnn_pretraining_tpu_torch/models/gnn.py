@@ -34,6 +34,7 @@ from gnn_pretraining_tpu_torch.ops.spmm import (
     gin_aggregate_dense,
     spmm,
 )
+from gnn_pretraining_tpu_torch.ops.spmm_csr import gin_aggregate_csr
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
 
 H = config.GNN_HIDDEN_DIM
@@ -144,10 +145,14 @@ class InputEncoder(nn.Module):
 
 
 def _aggregate(h: torch.Tensor, eps: torch.Tensor, adj, senders, receivers,
-               edge_mask, impl: str) -> torch.Tensor:
-    if impl == "csr":
-        raise NotImplementedError(
-            "block-CSR aggregation (K3) is not ported yet: ROADMAP queue 2")
+               edge_mask, impl: str, bsr=None) -> torch.Tensor:
+    if impl == "csr" or bsr is not None:
+        if bsr is None:
+            raise ValueError(
+                "aggregation='csr' requires a prebuilt BlockCSR passed as bsr= "
+                "(host-side, ops/spmm_csr.build_block_csr); the batch loaders "
+                "only feed adj/COO operands")
+        return gin_aggregate_csr(h, bsr, eps)
     # As in the JAX model, no adjacency means COO whatever ``impl`` says; the
     # serving functions always pass one.
     if impl == "coo" or adj is None:
@@ -173,8 +178,9 @@ class GINConv(nn.Module):
             TorchLinear(2 * H, H, generator=gen, device=device))
 
     def forward(self, h, node_mask, aggregation: str, *, adj=None, senders=None,
-                receivers=None, edge_mask=None) -> torch.Tensor:
-        z = _aggregate(h, self.eps, adj, senders, receivers, edge_mask, aggregation)
+                receivers=None, edge_mask=None, bsr=None) -> torch.Tensor:
+        z = _aggregate(h, self.eps, adj, senders, receivers, edge_mask,
+                       aggregation, bsr)
         z = self.nn[1](self.nn[0](z), node_mask)
         return self.nn[3](self.nn[2](z))
 
@@ -186,17 +192,17 @@ class GINLayer(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         device = resolve_device(device)
-        self.aggregation = aggregation   # "dense" | "pallas" | "coo"
+        self.aggregation = aggregation   # "dense" | "pallas" | "coo" | "csr"
         self.gin_conv = GINConv(generator=generator, device=device)
         self.batch_norm = MaskedBatchNorm(H, device=device)
         self.relu = nn.ReLU()
         self.dropout = Dropout(config.DROPOUT_RATE)
 
     def forward(self, h, node_mask, *, adj=None, senders=None, receivers=None,
-                edge_mask=None) -> torch.Tensor:
+                edge_mask=None, bsr=None) -> torch.Tensor:
         z = self.gin_conv(h, node_mask, self.aggregation, adj=adj,
                           senders=senders, receivers=receivers,
-                          edge_mask=edge_mask)
+                          edge_mask=edge_mask, bsr=bsr)
         z = self.batch_norm(z + h, node_mask)   # residual before the BN
         return self.dropout(self.relu(z))
 
@@ -214,8 +220,8 @@ class GINBackbone(nn.Module):
             for _ in range(config.GNN_NUM_LAYERS))
 
     def forward(self, h, node_mask, *, adj=None, senders=None, receivers=None,
-                edge_mask=None) -> torch.Tensor:
+                edge_mask=None, bsr=None) -> torch.Tensor:
         for layer in self.layers:
             h = layer(h, node_mask, adj=adj, senders=senders,
-                      receivers=receivers, edge_mask=edge_mask)
+                      receivers=receivers, edge_mask=edge_mask, bsr=bsr)
         return h

@@ -1,8 +1,10 @@
-"""Compute ops: segment reductions, the GIN aggregation (kernel K1) and the
-fused NT-Xent (kernel K2, ``ops.ntxent``).
+"""Compute ops: segment reductions, the GIN aggregation (kernel K1, and
+kernel K3 over block-CSR tiles) and the fused NT-Xent (kernel K2,
+``ops.ntxent``).
 
-The aggregation entry ``spmm`` is reached as ``ops.spmm.spmm``: the package
-attribute ``spmm`` is its module."""
+The aggregation entries ``spmm`` and ``spmm_csr`` are reached as
+``ops.spmm.spmm`` and ``ops.spmm_csr.spmm_csr``: the package attributes of
+those names are their modules."""
 
 from gnn_pretraining_tpu_torch.ops.segment import (
     segment_count,
@@ -19,4 +21,13 @@ from gnn_pretraining_tpu_torch.ops.spmm import (
     gin_spmm_fwd,
     spmm_bwd_reference,
     spmm_reference,
+)
+from gnn_pretraining_tpu_torch.ops.spmm_csr import (
+    BlockCSR,
+    build_block_csr,
+    csr_matvec_reference,
+    csr_spmm_bwd,
+    csr_spmm_fwd,
+    gin_aggregate_csr,
+    rcm_order,
 )

@@ -2,10 +2,10 @@
 
 Every ``*.cu`` file in ``gnn_pretraining_tpu_torch/csrc/`` is compiled for
 ``sm_90a`` (one nvcc per source, all started together: K1 in
-``gin_spmm.cu``, K2 in ``ntxent.cu``), and the objects are linked into
-``build/torch_kernels/libgnn_kernels.so`` under the repository root. The
-library has a plain C interface: each entry returns ``cudaGetLastError()``
-after its launch. Nothing is built when a module is
+``gin_spmm.cu``, K2 in ``ntxent.cu``, K3 in ``spmm_csr.cu``), and the
+objects are linked into ``build/torch_kernels/libgnn_kernels.so`` under the
+repository root. The library has a plain C interface: each entry returns
+``cudaGetLastError()`` after its launch. Nothing is built when a module is
 imported; ``library()`` builds at first use when the library is missing or
 older than a source.
 """
@@ -107,6 +107,8 @@ def library() -> ctypes.CDLL:
             entry.argtypes = [p] * 7 + [i, i, i, p]
         for entry in (lib.ntxent_fwd, lib.ntxent_bwd_rows, lib.ntxent_bwd_cols):
             entry.restype = i
+        lib.csr_spmm.argtypes = [p] * 6 + [i] * 5 + [p]
+        lib.csr_spmm.restype = i
         lib.gin_kernels_error_string.argtypes = [i]
         lib.gin_kernels_error_string.restype = ctypes.c_char_p
         _lib = lib

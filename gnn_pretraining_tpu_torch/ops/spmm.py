@@ -9,7 +9,9 @@ Port of ``gnn_pretraining_tpu/ops/spmm.py``. The paths:
                                tensors, forward and backward; its plain
                                versions ``spmm_reference`` and
                                ``spmm_bwd_reference`` on CPU tensors, and
-                               only there.
+                               only there;
+  * ``ops.spmm_csr``        -- kernel K3 over the nonzero adjacency tiles,
+                               for graphs past the dense limit.
 
 The adjacency is built once per batch (``build_dense_adjacency``) and reused
 by all 5 GIN layers. ``spmm`` is one ``torch.autograd.Function``: its
@@ -186,24 +188,35 @@ def gin_aggregate(h: torch.Tensor, eps, *, adj: torch.Tensor | None = None,
                   senders: torch.Tensor | None = None,
                   receivers: torch.Tensor | None = None,
                   edge_mask: torch.Tensor | None = None,
-                  impl: str = "pallas") -> torch.Tensor:
+                  bsr=None, impl: str = "pallas") -> torch.Tensor:
     """Dispatch between the aggregation implementations.
 
     The dense-adjacency paths (``dense``/``pallas``, the latter being K1)
     carry O(N²) memory; past ``DENSE_ADJACENCY_MAX_NODES`` nodes they refuse
-    to build an adjacency, before allocating it. ``coo`` works at any size."""
+    to build an adjacency, before allocating it. For large graphs pass a
+    ``BlockCSR`` (``ops.spmm_csr.build_block_csr``, once per graph) as
+    ``bsr`` or ask for ``impl="csr"`` (K3; the tiles are then built here on
+    the host from the edge list). ``coo`` works at any size."""
     if impl == "coo":
         return gin_aggregate_coo(h, senders, receivers, edge_mask, eps)
-    if impl == "csr":
-        raise NotImplementedError(
-            "block-CSR aggregation (K3) is not ported yet: ROADMAP queue 2")
+    if bsr is not None or impl == "csr":
+        from gnn_pretraining_tpu_torch.ops.spmm_csr import (
+            build_block_csr,
+            gin_aggregate_csr,
+        )
+
+        if bsr is None:
+            bsr = build_block_csr(senders.cpu().numpy(), receivers.cpu().numpy(),
+                                  edge_mask.cpu().numpy(), h.shape[0]).to(h.device)
+        return gin_aggregate_csr(h, bsr, eps)
     if impl not in ("dense", "pallas"):
         raise ValueError(f"unknown impl {impl!r}")
     if adj is None:
         if h.shape[0] > config.DENSE_ADJACENCY_MAX_NODES:
             raise ValueError(
                 f"dense adjacency for {h.shape[0]} nodes would be "
-                f"{h.shape[0]**2 * 2 / 2**20:.0f} MB; use impl='coo'")
+                f"{h.shape[0]**2 * 2 / 2**20:.0f} MB; pass a BlockCSR as bsr= "
+                "(ops/spmm_csr.build_block_csr) or use impl='coo'")
         adj = build_dense_adjacency(senders, receivers, edge_mask, h.shape[0])
     if impl == "dense":
         return gin_aggregate_dense(h, adj, eps)

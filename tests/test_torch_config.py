@@ -53,7 +53,8 @@ def test_port_modules_import_no_jax():
     modules = ["gnn_pretraining_tpu_torch"] + [
         m.name for m in pkgutil.walk_packages(
             gnn_pretraining_tpu_torch.__path__, "gnn_pretraining_tpu_torch.")]
-    assert "gnn_pretraining_tpu_torch.ops._build" in modules
+    assert {"gnn_pretraining_tpu_torch.ops._build", "gnn_pretraining_tpu_torch.ops.spmm_csr",
+            "gnn_pretraining_tpu_torch.finetune.runners"} <= set(modules)
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))")

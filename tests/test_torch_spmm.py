@@ -19,6 +19,7 @@ from gnn_pretraining_tpu import config
 from gnn_pretraining_tpu.ops import segment as jax_segment
 from gnn_pretraining_tpu.ops import spmm as jax_spmm
 from gnn_pretraining_tpu_torch.ops import segment, spmm
+from gnn_pretraining_tpu_torch.ops.spmm_csr import build_block_csr
 
 # Small CPU shapes: one intra-op thread per test process. The default, a
 # thread per core in every pytest-xdist worker, spends most of its time
@@ -118,8 +119,11 @@ def test_dispatch_paths_agree_and_csr_is_not_ported():
     for impl in ("dense", "pallas"):
         got = spmm.gin_aggregate(h, 0.2, impl=impl, **kw)
         np.testing.assert_allclose(got.numpy(), coo.numpy(), rtol=1e-3, atol=1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmm.gin_aggregate(h, 0.2, impl="csr", **kw)
+    # The name predates kernel K3: ``csr`` is ported now, and the dispatch
+    # builds the block-CSR tiles on the host when no BlockCSR is passed.
+    for got in (spmm.gin_aggregate(h, 0.2, impl="csr", **kw),
+                spmm.gin_aggregate(h, 0.2, bsr=build_block_csr(s, r, m, 48), **kw)):
+        np.testing.assert_allclose(got.numpy(), coo.numpy(), rtol=1e-3, atol=1e-3)
 
 
 def test_dense_guard_raises_before_allocating(monkeypatch):
