@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one CUDA card and the CUDA
 toolkit (nvcc). Phases, each printed as one JSON line:
 
   1. device  -- the card's name and power limit (nvidia-smi); TF32 off;
-  2. build   -- compile the port's CUDA sources (build/torch_kernels/);
+  2. build   -- compile the port's CUDA sources (build/torch_kernels/) and
+                report each kernel's ptxas resources;
   3. kernel  -- K1-fwd and K1-bwd against their plain versions in every
                 precision mode, at every shape the main path gives them (the
                 serving buckets, the pads of the fine-tune loaders built from
@@ -41,14 +42,15 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 views, PCGrad order, dropout draws and ReLU branches; then
                 pretrain() for 1 epoch and finetune() on ENZYMES for 1 epoch
                 from the checkpoint it wrote;
-  9. csr     -- K3-fwd and K3-bwd against their plain version in every
-                precision mode on the tiles of Cora_NC and Cora_LP at 6x
-                scale after RCM (data/processed_6x, 16248 nodes, the stores
-                the csr path trains on), a banded 16384-node graph, a ragged
-                300-node graph with empty tile rows, a pad_to case and the
-                2712-node Cora store of phase 5, where K3 must also equal K1
-                on the same graph; the autograd Function's dH and d-eps
-                against autograd through the COO f32 aggregation;
+  9. csr     -- K3-fwd and K3-bwd against their plain version (over the
+                edge CSR) and the tile oracle (over the 128 x 128 tiles) in
+                every precision mode on Cora_NC and Cora_LP at 6x scale after
+                RCM (data/processed_6x, 16248 nodes, the stores the csr path
+                trains on), a banded 16384-node graph, a ragged 300-node
+                graph with rows and tile rows without edges, a pad_to case
+                and the 2712-node Cora store of phase 5, where K3 must also
+                equal K1 on the same graph; the autograd Function's dH and
+                d-eps against autograd through the COO f32 aggregation;
  10. csr train and entry -- one fine-tune train step on K3 per csr cell
                 (Cora_NC full_finetune and linear_probe, Cora_LP
                 full_finetune, on the 6x stores, scheme b1), each counted at
@@ -57,17 +59,22 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 f32 path on the same permuted graph with the same dropout
                 seed, ReLU branches and negatives; then finetune(
                 aggregation="csr") for 2 epochs on Cora_NC and 1 on Cora_LP;
- 11. timing  -- CUDA-event medians of K1 fwd and bwd, of the three K2
-                kernels and of K3 fwd and bwd (Cora_NC 6x and the banded
-                graph), their plain versions, one PyTorch call for the same
-                function where there is one (addmm, cuSPARSE for K3), each
-                serving forward and each train step, csr ones included, and
-                the K2 Function against the plain NT-Xent formula (forward +
-                backward) over a range of rows;
+ 11. timing  -- device-time medians (each call queued behind a sleep
+                kernel, so the host's launch cost is left out; the time per
+                call beside it) of K1 fwd and bwd (split, and bf16), of the
+                three K2 kernels and of K3 fwd and bwd (Cora_NC 6x and the
+                banded graph), their plain versions and one PyTorch call for
+                the same function where there is one (addmm, cuSPARSE for
+                K3); CUDA-event medians per call of each serving forward and
+                each train step, csr ones included, and of the K2 Function
+                against the plain NT-Xent formula (forward + backward) over
+                a range of rows;
  12. profile -- each serving forward's and train step's device time by kernel
                 (torch.profiler) and the share of its time the card idles.
 
-Then the card's nvidia-smi line, a {"kernels": [...]} line, and last
+The build phase prints every kernel's registers, shared memory and spills
+(ptxas) and fails if a kernel of K1 or K3 spills. Then the card's
+nvidia-smi line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Any failure raises, so the script exits
 non-zero and prints no result; it also does so without a CUDA card and
 outside a checkout.
@@ -77,6 +84,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -126,7 +134,7 @@ TWIN = {"pallas": "dense", "csr": "coo"}
 CELL_SCHEME = {"pallas": "b2", "csr": "b1"}     # b1: from scratch, no checkpoint
 # K3's checks: the 6x Cora graphs after RCM, the banded graph of the JAX
 # package's crossover scans, a ragged graph with empty tile rows, a pad_to
-# case, and the 2712-node Cora store, where K3 must also equal K1.
+# case, and the 2712-node Cora store, where K3 must also agree with K1.
 CSR_BANDED = dict(n=16384, e=65536, band=256)
 CSR_RAGGED = dict(n=300, e=200, f=40, reach=100)      # edges among the first 100
 CSR_PADDED = dict(n=520, e=2000, masked=200, pad_to=64, f=72)
@@ -167,12 +175,15 @@ NTXENT_VALID_SHARE = 0.7            # of node pairs; graph rows all valid
 CROSSOVER_ROWS = (4096, 8192)       # besides 16 and each domain's 2 x n_pad
 TIMING_REPS = 30
 WARMUP = 5
+SLEEP_CYCLES = 1_000_000            # device_ms: ~0.5 ms of card time per call
 PROFILE_REPS = 5
 # Published H100 SXM peaks (dense bf16 tensor cores, f32 outside them, HBM3);
 # every bound_ms counts operations at the first, K1's and K2's alike.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# Sources whose kernels must not spill registers (K1's and K3's redesigns).
+NO_SPILL_SOURCES = ("gin_spmm.cu", "spmm_csr.cu")
 # Bucket shapes of the tracked serving artifacts (artifacts/MANIFEST.json).
 ENZYMES_BUCKET = dict(graphs=32, nodes=1056, edges=3992)
 CORA_NODES, CORA_NODES_PAD = 2708, 2712
@@ -212,14 +223,39 @@ def device_phase() -> str:
     return card
 
 
+def ptxas_report(log: str) -> list:
+    """Per kernel of nvcc's ``-Xptxas -v`` output: its source, registers,
+    shared memory and spill bytes."""
+    rows, source = [], None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif m := re.search(r"Compiling entry function '([^']+)'", line):
+            rows.append({"source": source, "kernel": m.group(1)})
+        elif rows and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line)):
+            rows[-1]["spill_stores"], rows[-1]["spill_loads"] = map(int, m.groups())
+        elif rows and (m := re.search(r"Used (\d+) registers", line)):
+            rows[-1]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return rows
+
+
 def build_phase() -> None:
+    """Build every kernel; fail if a K1 or K3 kernel spills."""
     from gnn_pretraining_tpu_torch.ops import _build
 
     res = _build.build()
-    ptxas = [ln.strip() for ln in str(res["log"]).splitlines()
-             if "registers" in ln or "spill" in ln]
+    kernels = ptxas_report(str(res["log"]))
+    for row in kernels:
+        emit({"phase": "build", "ptxas": row})
+    spilled = [k["kernel"] for k in kernels if k["source"] in NO_SPILL_SOURCES
+               and k.get("spill_stores", 0) + k.get("spill_loads", 0) > 0]
     emit({"phase": "build", "seconds": res["seconds"], "library": res["path"],
-          "ptxas": ptxas})
+          "kernels": len(kernels), "spilled": spilled})
+    if spilled or not kernels:
+        raise AssertionError(f"ptxas: kernels that spill {spilled} (of {len(kernels)})")
 
 
 def random_adjacency(rng, n: int, device, dtype) -> torch.Tensor:
@@ -969,7 +1005,30 @@ def pretrain_entry_phase(device, processed_dir: Path, out_root: Path) -> None:
         raise AssertionError("pretrain() / finetune() from its checkpoint failed its checks")
 
 
+def device_ms(fn) -> float:
+    """Device time of one call: the median over TIMING_REPS calls of the
+    CUDA-event time around it, each call queued behind a ~0.5 ms sleep
+    kernel so that the host has launched all of it before the card reaches
+    the first event (the host's launch time is not in the number)."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(TIMING_REPS):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
 def median_ms(fn) -> float:
+    """Time of one call as the caller sees it: the median CUDA-event time
+    around calls made back to back, the host's launch time included."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -1004,7 +1063,9 @@ KERNEL_ROWS = {
 
 def timing_phase(device, forwards, steps, timed, errors, launches):
     """``timed``: (where the path meets the shape, its padded graph, the
-    kernels the path launches at that shape); the last is the main row."""
+    kernels the path launches at that shape); the last is the main row.
+    Kernel rows take device time (and the time per call), forwards and
+    train steps the time per call."""
     from gnn_pretraining_tpu_torch.ops.spmm import (
         build_dense_adjacency,
         gin_spmm_bwd,
@@ -1025,18 +1086,21 @@ def timing_phase(device, forwards, steps, timed, errors, launches):
         eps = torch.tensor([0.1], device=device)
         beta = 1.0 + 0.1
         calls = {
-            "gin_spmm_fwd": (lambda: gin_spmm_fwd(adj, h, eps, "split"),
+            "gin_spmm_fwd": (gin_spmm_fwd,
                              lambda: spmm_reference(adj, h, eps, "split"),
                              lambda: torch.addmm(h, adj_f32, h, beta=beta)),
-            "gin_spmm_bwd": (lambda: gin_spmm_bwd(adj, h, eps, "split"),
+            "gin_spmm_bwd": (gin_spmm_bwd,
                              lambda: spmm_bwd_reference(adj, h, eps, "split"),
                              lambda: torch.addmm(h, adj_f32_t, h, beta=beta)),
         }
         for name in launched_here:
-            kernel, plain, library = calls[name]
+            launch, plain, library = calls[name]
+            kernel = lambda: launch(adj, h, eps, "split")  # noqa: E731
             row = {"n": n, "f": f, "of": of, "mode": "split", "adj": "bfloat16",
-                   "ms": median_ms(kernel), "plain_ms": median_ms(plain),
-                   "library_ms": median_ms(library),
+                   "ms": device_ms(kernel), "call_ms": median_ms(kernel),
+                   # One bf16 pass instead of split's two: what the MMAs cost.
+                   "bf16_ms": device_ms(lambda: launch(adj, h, eps, "bf16")),
+                   "plain_ms": device_ms(plain), "library_ms": device_ms(library),
                    "library_call": KERNEL_ROWS[name]["library_call"],
                    **k1_bound(n, f, adj.element_size())}
             emit({"phase": "timing", "kernel": name, **row})
@@ -1066,7 +1130,9 @@ def timing_phase(device, forwards, steps, timed, errors, launches):
             "library_ms": main["library_ms"],
             "at": {"n": n, "f": 256, "of": main["of"], "mode": "split",
                    "adj": "bfloat16"},
-            "also": [{**{k: e[k] for k in ("n", "of", "ms", "plain_ms", "library_ms",
+            "call_ms": main["call_ms"], "bf16_ms": main["bf16_ms"],
+            "also": [{**{k: e[k] for k in ("n", "of", "ms", "call_ms", "bf16_ms", "plain_ms",
+                                           "library_ms",
                                            "bound_ms", "bound_by")},
                       "max_abs_err": errors[(name, e["n"], 256, torch.bfloat16, "split")]}
                      for e in rows[:-1]],
@@ -1125,8 +1191,9 @@ def ntxent_timing_phase(device, shapes, errors, launches):
         for name, (kernel, plain) in calls.items():
             if name != "ntxent_fwd" and rows not in trained:
                 continue                       # eval runs the forward only
-            row = {"rows": rows, "d": 128, "of": shapes[rows], "ms": median_ms(kernel),
-                   "plain_ms": median_ms(plain), "library_ms": None,
+            row = {"rows": rows, "d": 128, "of": shapes[rows], "ms": device_ms(kernel),
+                   "call_ms": median_ms(kernel), "plain_ms": device_ms(plain),
+                   "library_ms": None,
                    "max_abs_err": errors[(name, rows)], **k2_bound(name, rows)}
             emit({"phase": "timing", "kernel": name, **row})
             entries[name].append(row)
@@ -1156,7 +1223,8 @@ def ntxent_timing_phase(device, shapes, errors, launches):
             "bound_by": main["bound_by"], "library_ms": None,
             "bound_f32_simt_ms": main["bound_f32_simt_ms"],
             "at": {"rows": main["rows"], "d": 128, "of": main["of"]},
-            "also": [{k: e[k] for k in ("rows", "of", "ms", "plain_ms", "bound_ms",
+            "call_ms": main["call_ms"],
+            "also": [{k: e[k] for k in ("rows", "of", "ms", "call_ms", "plain_ms", "bound_ms",
                                         "bound_by", "max_abs_err")}
                      for e in rows if e is not main],
         })
@@ -1207,6 +1275,9 @@ def csr_cases(processed_dir: Path) -> list:
     add(f"Cora {g.num_nodes} (K1's graph)", build_block_csr(s, r, m, g.num_nodes), 256,
         s, r, m, k1=True)
     emit({"phase": "csr", "cases": [{"case": c["label"], "nodes": c["bsr"].num_nodes,
+                                     "nnz": c["bsr"].nnz,
+                                     "longest_row": int(c["bsr"].indptr.diff().max()),
+                                     "longest_row_t": int(c["bsr"].indptr_t.diff().max()),
                                      "tiles": c["bsr"].nnzb,
                                      "tiles_t": int(c["bsr"].vals_t.shape[0]),
                                      "f": c["f"]} for c in cases]})
@@ -1214,9 +1285,9 @@ def csr_cases(processed_dir: Path) -> list:
 
 
 def csr_kernel_phase(device, cases) -> dict:
-    """K3 fwd and bwd against their plain version in every mode, K3 against
-    K1 on K1's graph, and the Function's dH and d-eps against autograd
-    through the COO f32 aggregation."""
+    """K3 fwd and bwd against their plain version and the tile oracle in
+    every mode, K3 against K1 on K1's graph, and the Function's dH and d-eps
+    against autograd through the COO f32 aggregation."""
     from gnn_pretraining_tpu_torch.ops.spmm import (
         build_dense_adjacency,
         gin_aggregate_coo,
@@ -1224,6 +1295,7 @@ def csr_kernel_phase(device, cases) -> dict:
         gin_spmm_fwd,
     )
     from gnn_pretraining_tpu_torch.ops.spmm_csr import (
+        csr_edges_reference,
         csr_matvec_reference,
         csr_spmm_bwd,
         csr_spmm_fwd,
@@ -1233,38 +1305,46 @@ def csr_kernel_phase(device, cases) -> dict:
     rng = np.random.default_rng(SEED + 7)
     errors = {}
     for case in cases:
-        label, f = case["label"], case["f"]
-        bsr = case["bsr"].to(device)
+        label, f, host = case["label"], case["f"], case["bsr"]
+        bsr = host.to(device)                   # the edge CSRs; tiles stay
         n = bsr.num_nodes
         h = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(device)
         eps = torch.tensor([-0.2], device=device)
         s, r, m = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in case["edges"])
         adj = (build_dense_adjacency(s, r, m, n, dtype=torch.bfloat16)
                if case["k1"] else None)
-        pairs = {"csr_spmm_fwd": (csr_spmm_fwd, (bsr.vals, bsr.rows, bsr.cols), gin_spmm_fwd),
-                 "csr_spmm_bwd": (csr_spmm_bwd, (bsr.vals_t, bsr.rows_t, bsr.cols_t),
-                                  gin_spmm_bwd)}
-        for mode, tol in KERNEL_TOL.items():
-            for name, (kernel, tiles, k1) in pairs.items():
+        pairs = {"csr_spmm_fwd": (csr_spmm_fwd, (bsr.indptr, bsr.indices, bsr.data),
+                                  (host.vals, host.rows, host.cols), gin_spmm_fwd),
+                 "csr_spmm_bwd": (csr_spmm_bwd, (bsr.indptr_t, bsr.indices_t, bsr.data_t),
+                                  (host.vals_t, host.rows_t, host.cols_t), gin_spmm_bwd)}
+        for name, (kernel, edges, tiles, k1) in pairs.items():
+            tiles = [t.to(device) for t in tiles]
+            for mode, tol in KERNEL_TOL.items():
                 out = kernel(bsr, h, eps, mode)
-                ref = csr_matvec_reference(*tiles, h, eps, mode, n)
-                k1_rel = (float((out - k1(adj, h, eps, mode)).abs().max() / ref.abs().max())
+                ref = csr_edges_reference(*edges, h, eps, mode)
+                scale = float(ref.abs().max())
+                tile_rel = float((out - csr_matvec_reference(*tiles, h, eps, mode, n))
+                                 .abs().max()) / scale
+                k1_rel = (float((out - k1(adj, h, eps, mode)).abs().max()) / scale
                           if adj is not None else None)
                 torch.cuda.synchronize()
                 abs_err = float((out - ref).abs().max())
-                rel = abs_err / float(ref.abs().max())
-                ok = bool(rel <= tol and torch.isfinite(out).all()
+                rel = abs_err / scale
+                ok = bool(rel <= tol and tile_rel <= tol and torch.isfinite(out).all()
                           and (k1_rel is None or k1_rel <= tol))
                 emit({"phase": "csr", "kernel": name, "case": label, "n": n, "f": f,
-                      "tiles": bsr.nnzb, "mode": mode, "max_abs_err": abs_err,
-                      "max_rel_err": rel, "k1_max_rel_diff": k1_rel, "tol": tol, "ok": ok})
+                      "nnz": bsr.nnz, "tiles": host.nnzb, "mode": mode,
+                      "max_abs_err": abs_err, "max_rel_err": rel,
+                      "tile_oracle_max_rel_diff": tile_rel, "k1_max_rel_diff": k1_rel,
+                      "tol": tol, "ok": ok})
                 if not ok:
                     raise AssertionError(f"{name} {mode} on {label}: relative error {rel}, "
-                                         f"against K1 {k1_rel} > {tol}")
+                                         f"against the tiles {tile_rel}, against K1 "
+                                         f"{k1_rel} > {tol}")
                 errors[(name, label, mode)] = abs_err
 
-        # The Function's wiring: dH from K3 over the transposed tiles, d-eps
-        # from the reduction, against autograd through the COO aggregation.
+        # The Function's wiring: dH from K3 over the CSR of Aᵀ, d-eps from
+        # the reduction, against autograd through the COO aggregation.
         up = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(device)
         grads = []
         for aggregate in (lambda h_, e_: spmm_csr(bsr, h_, e_, "highest"),
@@ -1285,15 +1365,14 @@ def csr_kernel_phase(device, cases) -> dict:
     return errors
 
 
-def csr_bound(tiles: int, n: int, f: int) -> dict:
-    """Least time for split-mode K3 on the H100 over this graph's tiles: two
-    bf16 passes of 2 * tiles * 128 * 128 * F operations, against the f32
-    tiles, their column and row indices, H and out each moved once;
-    ``bound_f32_simt_ms`` at the f32 peak outside the tensor cores, where
-    this kernel runs its products."""
-    n_rows = -(-n // 128)
-    ops = 2 * 2 * tiles * 128 * 128 * f
-    nbytes = 4 * tiles * 128 * 128 + 4 * tiles + 4 * (n_rows + 1) + 4 * n * f * 2 + 4
+def csr_bound(nnz: int, n: int, f: int) -> dict:
+    """Least time for split-mode K3 on the H100, counted by this graph's
+    nonzeros: H read and out written once (8 N F bytes), each nonzero's index
+    and value (8 nnz) and indptr (4 (N + 1)), against 4 nnz F operations (a·hi
+    + a·lo per nonzero and feature) at the tensor-core peak, as K1's and K2's
+    (``bound_f32_simt_ms`` at the f32 peak, where this kernel runs them)."""
+    ops = 4 * nnz * f
+    nbytes = 8 * n * f + 8 * nnz + 4 * (n + 1)
     t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1309,10 +1388,10 @@ K3_ROWS = {name: {"replaces": "gnn_pretraining_tpu/ops/spmm_csr.py:205",
 
 def csr_timing_phase(device, cases, errors, launches) -> list:
     """K3 fwd and bwd at the timed cases (the main row is Cora_NC x6 after
-    RCM): CUDA-event medians of the kernel, its plain version and one
-    cuSPARSE call for the same function, beside the bound."""
+    RCM): device time of the kernel (and its time per call), its plain
+    version and one cuSPARSE call for the same function, beside the bound."""
     from gnn_pretraining_tpu_torch.ops.spmm_csr import (
-        csr_matvec_reference,
+        csr_edges_reference,
         csr_spmm_bwd,
         csr_spmm_fwd,
     )
@@ -1320,7 +1399,8 @@ def csr_timing_phase(device, cases, errors, launches) -> list:
     rng = np.random.default_rng(SEED + 8)
     entries = {name: [] for name in K3_ROWS}
     for case in (c for c in cases if c["timed"]):
-        bsr, f = case["bsr"].to(device), case["f"]
+        host, f = case["bsr"], case["f"]
+        bsr = host.to(device)
         n = bsr.num_nodes
         h = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(device)
         eps = torch.tensor([0.1], device=device)
@@ -1335,12 +1415,12 @@ def csr_timing_phase(device, cases, errors, launches) -> list:
         a_csr, a_t_csr = csr_matrix(r, s), csr_matrix(s, r)     # made outside the timing
         calls = {
             "csr_spmm_fwd": (lambda: csr_spmm_fwd(bsr, h, eps, "split"),
-                             lambda: csr_matvec_reference(bsr.vals, bsr.rows, bsr.cols, h,
-                                                          eps, "split", n),
+                             lambda: csr_edges_reference(bsr.indptr, bsr.indices, bsr.data,
+                                                         h, eps, "split"),
                              lambda: torch.sparse.addmm(h, a_csr, h, beta=beta)),
             "csr_spmm_bwd": (lambda: csr_spmm_bwd(bsr, h, eps, "split"),
-                             lambda: csr_matvec_reference(bsr.vals_t, bsr.rows_t, bsr.cols_t,
-                                                          h, eps, "split", n),
+                             lambda: csr_edges_reference(bsr.indptr_t, bsr.indices_t,
+                                                         bsr.data_t, h, eps, "split"),
                              lambda: torch.sparse.addmm(h, a_t_csr, h, beta=beta)),
         }
         for name, (kernel, plain, library) in calls.items():
@@ -1349,14 +1429,14 @@ def csr_timing_phase(device, cases, errors, launches) -> list:
             lib_rel = float((got - want).abs().max() / want.abs().max())
             if lib_rel > KERNEL_TOL["split"]:
                 raise AssertionError(f"{name} and cuSPARSE part on {case['label']}: {lib_rel}")
-            tiles = bsr.nnzb if name == "csr_spmm_fwd" else int(bsr.vals_t.shape[0])
-            row = {"case": case["label"], "n": n, "f": f, "tiles": tiles, "mode": "split",
-                   "ms": median_ms(kernel), "plain_ms": median_ms(plain),
-                   "library_ms": median_ms(library),
+            tiles = host.nnzb if name == "csr_spmm_fwd" else int(host.vals_t.shape[0])
+            row = {"case": case["label"], "n": n, "f": f, "nnz": bsr.nnz, "tiles": tiles,
+                   "mode": "split", "ms": device_ms(kernel), "call_ms": median_ms(kernel),
+                   "plain_ms": device_ms(plain), "library_ms": device_ms(library),
                    "library_call": K3_ROWS[name]["library_call"],
                    "library_max_rel_diff": lib_rel,
                    "max_abs_err": errors[(name, case["label"], "split")],
-                   **csr_bound(tiles, n, f)}
+                   **csr_bound(bsr.nnz, n, f)}
             emit({"phase": "timing", "kernel": name, **row})
             entries[name].append(row)
 
@@ -1372,9 +1452,10 @@ def csr_timing_phase(device, cases, errors, launches) -> list:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "bound_f32_simt_ms": main["bound_f32_simt_ms"],
-            "at": {k: main[k] for k in ("case", "n", "f", "tiles", "mode")},
-            "also": [{k: e[k] for k in ("case", "tiles", "ms", "plain_ms", "library_ms",
-                                        "bound_ms", "bound_by", "max_abs_err")}
+            "at": {k: main[k] for k in ("case", "n", "f", "nnz", "tiles", "mode")},
+            "call_ms": main["call_ms"],
+            "also": [{k: e[k] for k in ("case", "nnz", "tiles", "ms", "call_ms", "plain_ms",
+                                        "library_ms", "bound_ms", "bound_by", "max_abs_err")}
                      for e in also],
         })
     return kernels
@@ -1404,7 +1485,8 @@ def profile_phase(calls, event_ms) -> None:
              and not e.key.startswith("Optimizer.")),
             key=lambda k: -k[1])
         busy = sum(ms for _, ms, _ in kernels)
-        k1 = {d: sum(ms for key, ms, _ in kernels if f"gin_spmm_{d}_kernel" in key)
+        # K1's tile kernels and, where it splits the contraction, its sums.
+        k1 = {d: sum(ms for key, ms, _ in kernels if f"gin_spmm_{d}_" in key)
               for d in ("fwd", "bwd")}
         k2 = sum(ms for key, ms, _ in kernels if "ntxent_" in key and "_kernel" in key)
         k3 = sum(ms for key, ms, _ in kernels if "csr_spmm_kernel" in key)

@@ -1,60 +1,74 @@
-// K3: the block-CSR GIN aggregation on Hopper, one kernel for both directions.
+// K3: the sparse GIN aggregation on Hopper, a row-gather kernel over an edge
+// CSR, one kernel for both directions.
 //
-//   out = T @ H + (1 + eps) * H      over the nonzero 128 x 128 tiles T of A
+//   out[r] = sum_{e in row r} a_e * H[col_e] + (1 + eps) * H[r]
 //
-// The forward (csr_spmm_fwd in ops/spmm_csr.py) runs it over the tiles of A
-// and H; the backward (csr_spmm_bwd) over the prebuilt tiles of A^T and the
-// upstream gradient G, giving dH = A^T @ G + (1 + eps) * G.
+// The forward (csr_spmm_fwd in ops/spmm_csr.py) runs it over the CSR of A by
+// destination row and H; the backward (csr_spmm_bwd) over the prebuilt CSR
+// of A^T by source row and the upstream gradient G, giving
+// dH = A^T @ G + (1 + eps) * G. Both directions own their output rows, so
+// neither needs atomics and both are deterministic (the TPU prebuilt the
+// tiles of A^T for the same reason).
 //
 // Replaces gnn_pretraining_tpu/ops/spmm_csr.py:_csr_kernel, which
 // _csr_matvec drives through pl.pallas_call over the grid (F / bn, nnzb):
-// the sequential tile axis t walks the tiles in row order, accumulates
-// T_t @ H[col_t] in a VMEM scratch carried from one grid step to the next,
-// and flushes acc + (1 + eps) * H[row_t] when the tile row changes. Blocks
-// of a CUDA grid run in no order and carry nothing, so here one block owns
-// one (tile row, 64-feature slice) and walks that row's tiles in a loop
-// (tile range from row_ptr, built on the host; the TPU prefetched the
-// coordinates as scalars). The accumulator stays in registers and the
-// epilogue writes each output element once: blocks share nothing, no atomics.
+// the sequential tile axis walks the nonzero 128 x 128 tiles of A in row
+// order, runs each tile against its slice of H on the matrix unit and
+// flushes acc + (1 + eps) * H[row] when the tile row changes. The tiles
+// suit a 128 x 128 matrix unit; on this card they carry ~8 edges per 16384
+// entries at Cora x6, so the tile format costs ~2000x the needed
+// multiply-adds and ~15x the needed bytes. Here the kernel reads only the
+// nonzeros.
 //
-// Operands: tiles [nnzb,128,128] f32 sorted by tile row (a zero tile for an
-// empty row; pad tiles repeat the last row with zero values and add zeros),
-// row_ptr [n_rows+1] i32, cols [nnzb] i32, H [N,F] f32 with N <= 128 n_rows
-// (rows past N and features past F are masked, nothing is padded), eps one
-// f32 on the device (read here: no host sync), out [N,F] f32. Modes follow
-// the TPU kernel: HIGHEST f32 products; SPLIT rounds H to hi = bf16(h) and
-// lo = bf16(h - hi) as it is staged and sums t*hi + t*lo; BF16 takes
-// t*bf16(h); in SPLIT and BF16 a tile is rounded to bf16, which is exact for
-// edge multiplicities.
+// What bounds it on the H100: bytes, counted by nonzeros. For N rows, F
+// features and nnz nonzeros it must read H once and write out once
+// (8 N F bytes), read each nonzero's index and value (8 nnz) and indptr
+// (4 (N + 1)); at Cora_NC x6 (N = 16248, F = 256, nnz = 63336) that is
+// 33.8 MB, 0.0101 ms at 3.35 TB/s, against 65 MFLOP (4 nnz F in SPLIT),
+// which are negligible. So the design is about bytes and occupancy, and
+// tensor cores are deliberately not used:
+//   * one warp per row, 8 rows per 256-thread block (2031 blocks at
+//     Cora x6, ~15 per SM);
+//   * the warp reads up to 32 (index, value) pairs with one coalesced load
+//     and hands them round with __shfl_sync; it gathers 2 neighbours' rows
+//     (4 float4 per lane) before adding any, so a row with many edges (a
+//     hub, or the clipped ends of the banded graph, up to 92) keeps 4 loads
+//     in flight per lane, not 2 (4 neighbours made ptxas spill);
+//   * each lane holds 8 features of a 256-feature chunk (two float4 at
+//     F = 256), so a neighbour's H row is gathered with 16-byte loads, 512
+//     contiguous bytes per warp and load; wider F loops over chunks; a width
+//     that is not a multiple of 4 (or an unaligned H) takes a masked scalar
+//     path, 8 strided features per lane;
+//   * the gathered rows of H (16.6 MB at Cora x6) stay in the 50 MB L2;
+//   * the mode's rounding is applied in registers, as the TPU kernel and
+//     csr_matvec_reference do: HIGHEST f32 products; SPLIT
+//     acc += a * bf16(h) + a * bf16(h - bf16(h)); BF16 acc += a * bf16(h);
+//     in SPLIT and BF16 a is rounded to bf16 (exact for multiplicities);
+//   * the epilogue acc + (1 + eps) * H[row] writes each output once, with
+//     eps read from device memory (no host sync); a row with no nonzero
+//     writes only the epilogue.
 //
-// What bounds it on the H100: the tiles. At Cora x6 after RCM (16248 nodes,
-// 7620 tiles, F = 256) they are 499 MB of f32, against ~33 MB of H and out:
-// moved once at 3.35 TB/s that is ~0.16 ms, while the products (two bf16
-// passes in SPLIT, 128 GFLOP) take ~0.13 ms at the 989 TFLOP/s tensor-core
-// peak. So the function is bound by bytes. This first design does the
-// products as f32 FMAs on the CUDA cores, so it is bound by FMA throughput
-// instead, far above either bound (like K1); what it does about the bytes:
-// the four feature slices of a tile row are neighbouring blocks, launched
-// together, so a tile comes from device memory about once and from L2 for
-// the other three, and tiles are read with 16-byte loads. Tensor cores
-// (wgmma with TMA), skipping the all-zero parts of a tile (~8 edges per
-// 16384 entries at Cora x6) and bf16 or sparser tile storage are later work.
+// Operands: indptr [N+1] i32, indices [nnz] i32, data [nnz] f32, H [N,F]
+// f32, eps one f32, out [N,F] f32, all on the device.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int TILE = 128;                       // bm = bk of the tiles
-constexpr int BN = 64;                          // output features per block
-constexpr int BK = 32;                          // contraction slice per step
-constexpr int TM = 8;                           // rows per thread
-constexpr int TN = 4;                           // features per thread
-constexpr int COLS = BN / TN;                   // 16 threads across features
-constexpr int THREADS = (TILE / TM) * COLS;     // 256
-constexpr int MAX_TILE_ROWS = 65535;            // gridDim.y
+constexpr int WARPS = 8;                        // rows per block
+constexpr int THREADS = 32 * WARPS;             // 256
+constexpr int CHUNK = 256;                      // features per warp pass
+constexpr int PER_LANE = CHUNK / 32;            // 8
+constexpr int UNROLL = 2;                       // neighbours gathered at once
+// Blocks per SM that ptxas must allow: 4 x 256 threads, 64 registers each,
+// the SM's whole thread count. Left free, ptxas gave the split kernel 48
+// registers and spilled.
+constexpr int MIN_BLOCKS = 4;
+constexpr unsigned FULL = 0xffffffffu;
 
 enum Mode { kHighest = 0, kSplit = 1, kBf16 = 2 };
 
@@ -62,133 +76,166 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// acc += a * v with the mode's rounding of v.
 template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-csr_spmm_kernel(const float* __restrict__ vals, const int* __restrict__ row_ptr,
-                const int* __restrict__ cols, const float* __restrict__ h,
+__device__ __forceinline__ float add_scaled(float acc, float a, float v) {
+  if constexpr (MODE == kHighest) {
+    return fmaf(a, v, acc);
+  } else {
+    const float hi = round_bf16(v);
+    acc = fmaf(a, hi, acc);
+    if constexpr (MODE == kSplit) acc = fmaf(a, round_bf16(v - hi), acc);
+    return acc;
+  }
+}
+
+// acc += a * v per element, with the mode's rounding of v.
+template <int MODE>
+__device__ __forceinline__ void add_scaled4(float4& acc, float a, float4 v) {
+  acc.x = add_scaled<MODE>(acc.x, a, v.x);
+  acc.y = add_scaled<MODE>(acc.y, a, v.y);
+  acc.z = add_scaled<MODE>(acc.z, a, v.z);
+  acc.w = add_scaled<MODE>(acc.w, a, v.w);
+}
+
+// VEC: F % 4 == 0 and H, out 16-byte aligned. Then a lane holds two float4
+// of each 256-feature chunk, at 4 lane and 128 + 4 lane; otherwise 8
+// features strided by 32, each loaded and stored alone. Features past F are
+// masked either way.
+template <int MODE, bool VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                const float* __restrict__ data, const float* __restrict__ h,
                 const float* __restrict__ eps, float* __restrict__ out, int n,
                 int f) {
-  __shared__ float a_s[TILE][BK + 1];             // +1: no bank conflicts
-  __shared__ float hi_s[BK][BN];
-  __shared__ float lo_s[MODE == kSplit ? BK : 1][BN];
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (row >= n) return;                         // whole warps leave together
+  const int start = indptr[row], end = indptr[row + 1];
+  const float scale = 1.f + eps[0];
+  const float* h_row = h + static_cast<size_t>(row) * f;
+  float* out_row = out + static_cast<size_t>(row) * f;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % COLS;                      // features tx + COLS*j
-  const int ty = tid / COLS;                      // rows ty*TM + i
-  const int col0 = blockIdx.x * BN;
-  const int tile_row = blockIdx.y;
-
-  float acc[TM][TN];
+  for (int c0 = 0; c0 < f; c0 += CHUNK) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 acc0 = zero, acc1 = zero;                               // VEC
+    float acc[PER_LANE];                                           // scalar
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int q = 0; q < PER_LANE; ++q) acc[q] = 0.f;
+    const int ca = c0 + 4 * lane, cb = ca + 128;
 
-  const int t_end = row_ptr[tile_row + 1];
-  for (int t = row_ptr[tile_row]; t < t_end; ++t) {
-    const float* tile = vals + static_cast<size_t>(t) * TILE * TILE;
-    const int k_base = cols[t] * TILE;            // first row of H it meets
-    for (int k0 = 0; k0 < TILE; k0 += BK) {
-      // A slice [128 x 32]: 16-byte loads, eight per tile row slice.
-      for (int idx = tid; idx < TILE * BK / 4; idx += THREADS) {
-        const int r = idx / (BK / 4), c = 4 * (idx % (BK / 4));
-        float4 v = *reinterpret_cast<const float4*>(
-            tile + static_cast<size_t>(r) * TILE + k0 + c);
-        if constexpr (MODE != kHighest) {
-          v.x = round_bf16(v.x);
-          v.y = round_bf16(v.y);
-          v.z = round_bf16(v.z);
-          v.w = round_bf16(v.w);
-        }
-        a_s[r][c] = v.x;
-        a_s[r][c + 1] = v.y;
-        a_s[r][c + 2] = v.z;
-        a_s[r][c + 3] = v.w;
+    for (int e0 = start; e0 < end; e0 += 32) {
+      int my_src = 0;
+      float my_a = 0.f;
+      if (e0 + lane < end) {                    // one coalesced load per 32
+        my_src = indices[e0 + lane];
+        my_a = data[e0 + lane];
+        if constexpr (MODE != kHighest) my_a = round_bf16(my_a);
       }
-      for (int idx = tid; idx < BK * BN; idx += THREADS) {
-        const int r = idx / BN, c = idx % BN;
-        const int gr = k_base + k0 + r, gc = col0 + c;
-        const float v =
-            (gr < n && gc < f) ? h[static_cast<size_t>(gr) * f + gc] : 0.f;
-        if constexpr (MODE == kSplit) {
-          const float hi = round_bf16(v);
-          hi_s[r][c] = hi;
-          lo_s[r][c] = round_bf16(v - hi);
-        } else if constexpr (MODE == kBf16) {
-          hi_s[r][c] = round_bf16(v);
-        } else {
-          hi_s[r][c] = v;
+      const int count = min(32, end - e0);
+      if constexpr (VEC) {
+        // UNROLL neighbours' rows are loaded before any is added.
+        for (int k0 = 0; k0 < count; k0 += UNROLL) {
+          float a[UNROLL];
+          float4 va[UNROLL], vb[UNROLL];
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            const int src = __shfl_sync(FULL, my_src, (k0 + u) % 32);
+            a[u] = __shfl_sync(FULL, my_a, (k0 + u) % 32);
+            const float4* v = reinterpret_cast<const float4*>(
+                h + static_cast<size_t>(src) * f);
+            const bool edge = k0 + u < count;
+            va[u] = edge && ca < f ? __ldg(v + ca / 4) : zero;
+            vb[u] = edge && cb < f ? __ldg(v + cb / 4) : zero;
+          }
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            if (k0 + u < count) {
+              add_scaled4<MODE>(acc0, a[u], va[u]);
+              add_scaled4<MODE>(acc1, a[u], vb[u]);
+            }
+          }
         }
-      }
-      __syncthreads();
-
-#pragma unroll 8
-      for (int k = 0; k < BK; ++k) {
-        float a[TM];
+      } else {
+#pragma unroll 1                                // unrolled, ptxas spills here
+        for (int k = 0; k < count; ++k) {
+          const int src = __shfl_sync(FULL, my_src, k);
+          const float a = __shfl_sync(FULL, my_a, k);
+          const float* h_src = h + static_cast<size_t>(src) * f;
 #pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = a_s[ty * TM + i][k];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const float hv = hi_s[k][tx + COLS * j];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i], hv, acc[i][j]);
-          if constexpr (MODE == kSplit) {
-            const float lv = lo_s[k][tx + COLS * j];
-#pragma unroll
-            for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i], lv, acc[i][j]);
+          for (int q = 0; q < PER_LANE; ++q) {
+            const int c = c0 + lane + 32 * q;
+            if (c < f) acc[q] = add_scaled<MODE>(acc[q], a, __ldg(h_src + c));
           }
         }
       }
-      __syncthreads();
     }
-  }
 
-  const float scale = 1.f + eps[0];
+    if constexpr (VEC) {
+      // The epilogue acc + (1 + eps) * H[row], 16 bytes at a time.
+      if (ca < f) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(h_row + ca));
+        *reinterpret_cast<float4*>(out_row + ca) =
+            make_float4(fmaf(scale, v.x, acc0.x), fmaf(scale, v.y, acc0.y),
+                        fmaf(scale, v.z, acc0.z), fmaf(scale, v.w, acc0.w));
+      }
+      if (cb < f) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(h_row + cb));
+        *reinterpret_cast<float4*>(out_row + cb) =
+            make_float4(fmaf(scale, v.x, acc1.x), fmaf(scale, v.y, acc1.y),
+                        fmaf(scale, v.z, acc1.z), fmaf(scale, v.w, acc1.w));
+      }
+    } else {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = tile_row * TILE + ty * TM + i;
-    if (r >= n) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx + COLS * j;
-      if (c < f) {
-        const size_t o = static_cast<size_t>(r) * f + c;
-        out[o] = acc[i][j] + scale * h[o];
+      for (int q = 0; q < PER_LANE; ++q) {
+        const int c = c0 + lane + 32 * q;
+        if (c < f) out_row[c] = fmaf(scale, h_row[c], acc[q]);
       }
     }
+  }
+}
+
+template <int MODE>
+void launch(const int* indptr, const int* indices, const float* data,
+            const float* h, const float* eps, float* out, int n, int f,
+            bool vec, cudaStream_t s) {
+  const dim3 grid((n + WARPS - 1) / WARPS);
+  if (vec) {
+    csr_spmm_kernel<MODE, true><<<grid, THREADS, 0, s>>>(indptr, indices, data,
+                                                         h, eps, out, n, f);
+  } else {
+    csr_spmm_kernel<MODE, false><<<grid, THREADS, 0, s>>>(indptr, indices, data,
+                                                          h, eps, out, n, f);
   }
 }
 
 }  // namespace
 
 // Launches K3 on `stream` and returns cudaGetLastError() (0 = launched).
-// One block per (64-feature slice, tile row): grid (ceil(f/64), n_rows).
-// mode: 0 highest, 1 split, 2 bf16. The forward passes the tiles of A and H,
-// the backward the tiles of A^T and the upstream gradient.
-extern "C" int csr_spmm(const float* vals, const int* row_ptr, const int* cols,
-                        const float* h, const float* eps, float* out,
-                        int n_rows, int n, int f, int mode, int device,
+// One warp per row, grid ceil(n / 8) blocks of 256 threads. mode: 0 highest,
+// 1 split, 2 bf16. The forward passes the CSR of A and H, the backward the
+// CSR of A^T and the upstream gradient.
+extern "C" int csr_spmm(const int* indptr, const int* indices,
+                        const float* data, const float* h, const float* eps,
+                        float* out, int n, int f, int mode, int device,
                         void* stream) {
-  if (mode < kHighest || mode > kBf16 || n <= 0 || f <= 0 || n_rows <= 0 ||
-      n_rows > MAX_TILE_ROWS || n > n_rows * TILE) {
+  if (mode < kHighest || mode > kBf16 || n <= 0 || f <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((f + BN - 1) / BN, n_rows);
+  const bool vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
   switch (mode) {
     case kHighest:
-      csr_spmm_kernel<kHighest><<<grid, THREADS, 0, s>>>(vals, row_ptr, cols,
-                                                         h, eps, out, n, f);
+      launch<kHighest>(indptr, indices, data, h, eps, out, n, f, vec, s);
       break;
     case kSplit:
-      csr_spmm_kernel<kSplit><<<grid, THREADS, 0, s>>>(vals, row_ptr, cols, h,
-                                                       eps, out, n, f);
+      launch<kSplit>(indptr, indices, data, h, eps, out, n, f, vec, s);
       break;
     default:
-      csr_spmm_kernel<kBf16><<<grid, THREADS, 0, s>>>(vals, row_ptr, cols, h,
-                                                      eps, out, n, f);
+      launch<kBf16>(indptr, indices, data, h, eps, out, n, f, vec, s);
       break;
   }
   return static_cast<int>(cudaGetLastError());

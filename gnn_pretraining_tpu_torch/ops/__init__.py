@@ -1,5 +1,5 @@
 """Compute ops: segment reductions, the GIN aggregation (kernel K1, and
-kernel K3 over block-CSR tiles) and the fused NT-Xent (kernel K2,
+kernel K3 over the adjacency's nonzeros) and the fused NT-Xent (kernel K2,
 ``ops.ntxent``).
 
 The aggregation entries ``spmm`` and ``spmm_csr`` are reached as
@@ -25,6 +25,7 @@ from gnn_pretraining_tpu_torch.ops.spmm import (
 from gnn_pretraining_tpu_torch.ops.spmm_csr import (
     BlockCSR,
     build_block_csr,
+    csr_edges_reference,
     csr_matvec_reference,
     csr_spmm_bwd,
     csr_spmm_fwd,

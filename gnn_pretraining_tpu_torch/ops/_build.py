@@ -100,14 +100,16 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
         for entry in (lib.gin_spmm_fwd, lib.gin_spmm_bwd):
-            entry.argtypes = [p, i, p, p, p, i, i, i, i, p]
+            entry.argtypes = [p, i, p, p, p, p, i, i, i, i, p]
             entry.restype = i
+        lib.gin_spmm_workspace.argtypes = [i, i, i, i]
+        lib.gin_spmm_workspace.restype = ctypes.c_longlong
         lib.ntxent_fwd.argtypes = [p] * 6 + [i, i, i, p]
         for entry in (lib.ntxent_bwd_rows, lib.ntxent_bwd_cols):
             entry.argtypes = [p] * 7 + [i, i, i, p]
         for entry in (lib.ntxent_fwd, lib.ntxent_bwd_rows, lib.ntxent_bwd_cols):
             entry.restype = i
-        lib.csr_spmm.argtypes = [p] * 6 + [i] * 5 + [p]
+        lib.csr_spmm.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.csr_spmm.restype = i
         lib.gin_kernels_error_string.argtypes = [i]
         lib.gin_kernels_error_string.restype = ctypes.c_char_p

@@ -10,8 +10,8 @@ Port of ``gnn_pretraining_tpu/ops/spmm.py``. The paths:
                                versions ``spmm_reference`` and
                                ``spmm_bwd_reference`` on CPU tensors, and
                                only there;
-  * ``ops.spmm_csr``        -- kernel K3 over the nonzero adjacency tiles,
-                               for graphs past the dense limit.
+  * ``ops.spmm_csr``        -- kernel K3 over the adjacency's nonzeros
+                               (edge CSR), for graphs past the dense limit.
 
 The adjacency is built once per batch (``build_dense_adjacency``) and reused
 by all 5 GIN layers. ``spmm`` is one ``torch.autograd.Function``: its
@@ -107,10 +107,14 @@ def _launch(entry: str, adj: torch.Tensor, h: torch.Tensor, eps,
         raise ValueError(f"eps must be one f32 value on {h.device}")
     eps = eps.detach().reshape(1).contiguous()
     out = torch.empty_like(h)
-    code = getattr(_build.library(), entry)(
+    lib, device = _build.library(), h.device.index
+    # Scratch for the partial sums when K1 splits the contraction.
+    ws_floats = lib.gin_spmm_workspace(n, f, MODES[mode], device)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=h.device) if ws_floats else None
+    code = getattr(lib, entry)(
         adj.data_ptr(), int(adj.dtype == torch.bfloat16), h.data_ptr(),
-        eps.data_ptr(), out.data_ptr(), n, f, MODES[mode], h.device.index,
-        torch.cuda.current_stream(h.device).cuda_stream)
+        eps.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        n, f, MODES[mode], device, torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(code, entry)
     return out
 
@@ -122,7 +126,9 @@ def gin_spmm_fwd(adj: torch.Tensor, h: torch.Tensor, eps,
     ``adj`` [N, N] bf16 or f32, ``h`` [N, F] f32, both contiguous on one card;
     ``eps`` a float or a 1-element f32 tensor on that card. Raises on anything
     else, and when the kernel does not build or launch. No autograd graph is
-    recorded here: ``spmm`` wraps this launch and K1-bwd in one Function."""
+    recorded here: ``spmm`` wraps this launch and K1-bwd in one Function.
+    Allocates the output and, where K1 splits the contraction, scratch for
+    its partial sums."""
     out = _launch("gin_spmm_fwd", adj, h.detach(), eps, mode)
     gin_spmm_fwd.launches += 1
     return out
@@ -195,7 +201,7 @@ def gin_aggregate(h: torch.Tensor, eps, *, adj: torch.Tensor | None = None,
     carry O(N²) memory; past ``DENSE_ADJACENCY_MAX_NODES`` nodes they refuse
     to build an adjacency, before allocating it. For large graphs pass a
     ``BlockCSR`` (``ops.spmm_csr.build_block_csr``, once per graph) as
-    ``bsr`` or ask for ``impl="csr"`` (K3; the tiles are then built here on
+    ``bsr`` or ask for ``impl="csr"`` (K3; the BlockCSR is then built here on
     the host from the edge list). ``coo`` works at any size."""
     if impl == "coo":
         return gin_aggregate_coo(h, senders, receivers, edge_mask, eps)

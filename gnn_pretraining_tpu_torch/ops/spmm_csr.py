@@ -1,21 +1,23 @@
-"""Block-CSR GIN aggregation for graphs past the dense limit: kernel K3.
+"""Sparse GIN aggregation for graphs past the dense limit: kernel K3.
 
-Port of ``gnn_pretraining_tpu/ops/spmm_csr.py``. The adjacency
-(A[dst, src] = edge multiplicity) is kept as its nonzero (bm × bk) tiles,
-dense tile values plus tile coordinates sorted by tile row, and
+Port of ``gnn_pretraining_tpu/ops/spmm_csr.py``. For the adjacency
+A[dst, src] = edge multiplicity,
 
     z = A @ h + (1 + eps) * h
 
-is computed over those tiles only:
+is computed over A's nonzeros:
 
-  * ``build_block_csr`` (numpy, once per graph, byte-equal to the JAX one)
-    makes the tiles of A and of Aᵀ; every empty tile row gets a zero tile,
-    and ``pad_to`` pads with zero tiles that repeat the last row;
-  * ``csr_spmm_fwd`` / ``csr_spmm_bwd`` launch K3 (``csrc/spmm_csr.cu``) over
-    the tiles of A (forward) or of Aᵀ (backward, ``dh = Aᵀ g + (1+eps) g``)
-    and count their launches; ``csr_matvec_reference`` is their plain
-    version (a batched product of the tiles with the slices of h they meet,
-    then ``index_add_`` over tile rows), with the kernel's rounding per mode;
+  * ``build_block_csr`` (numpy, once per graph) makes two descriptions of A
+    from the same masked edges: the nonzero (bm × bk) tiles of A and of Aᵀ,
+    byte-equal to the JAX ones (the plain tile oracle, tile counts, the
+    tile-sharded variant), and a CSR of A by destination row and of Aᵀ by
+    source row (duplicate edges merged by summing), which K3 reads;
+  * ``csr_spmm_fwd`` / ``csr_spmm_bwd`` launch K3 (``csrc/spmm_csr.cu``), a
+    row-gather kernel, over the CSR of A (forward) or of Aᵀ (backward,
+    ``dh = Aᵀ g + (1+eps) g``) and count their launches;
+    ``csr_edges_reference`` is their plain version (a gather with the
+    kernel's rounding per mode, then ``index_add_``) and
+    ``csr_matvec_reference`` the same function over the tiles;
   * ``spmm_csr`` is one ``torch.autograd.Function``: K3 on CUDA tensors (or
     an error), the plain version on CPU tensors; d eps = Σ g ⊙ h.
 
@@ -42,13 +44,16 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass
 class BlockCSR:
-    """Nonzero adjacency tiles, sorted by tile row; built once per graph.
+    """A graph's adjacency for K3, built once per graph on the host.
 
-    ``vals[t]`` is the dense (bm, bk) tile at tile coordinates (``rows[t]``,
-    ``cols[t]``) of A; ``vals_t`` / ``rows_t`` / ``cols_t`` are the tiles of
-    Aᵀ, which drive the backward. ``row_ptr[i]`` is the first tile of tile
-    row i (``row_ptr[-1]`` the tile count), so a CUDA block finds its row's
-    tiles itself; ``row_ptr_t`` likewise for Aᵀ."""
+    The tiles: ``vals[t]`` is the dense (bm, bk) tile at tile coordinates
+    (``rows[t]``, ``cols[t]``) of A, sorted by tile row; ``vals_t`` /
+    ``rows_t`` / ``cols_t`` are the tiles of Aᵀ; ``row_ptr[i]`` is the first
+    tile of tile row i (``row_ptr[-1]`` the tile count), ``row_ptr_t``
+    likewise for Aᵀ. The edges: ``indptr`` / ``indices`` / ``data`` are A
+    in CSR by destination row (``indices`` the sources, sorted within a row,
+    ``data`` the summed multiplicities), ``indptr_t`` / ``indices_t`` /
+    ``data_t`` Aᵀ by source row; these drive K3 and its plain version."""
 
     vals: torch.Tensor       # [nnzb, bm, bk]
     rows: torch.Tensor       # [nnzb] i32, non-decreasing
@@ -58,6 +63,12 @@ class BlockCSR:
     cols_t: torch.Tensor     # [nnzb_t] i32
     row_ptr: torch.Tensor    # [n_pad / bm + 1] i32
     row_ptr_t: torch.Tensor  # [n_pad / bk + 1] i32
+    indptr: torch.Tensor     # [num_nodes + 1] i32
+    indices: torch.Tensor    # [nnz] i32
+    data: torch.Tensor       # [nnz] f32
+    indptr_t: torch.Tensor   # [num_nodes + 1] i32
+    indices_t: torch.Tensor  # [nnz] i32
+    data_t: torch.Tensor     # [nnz] f32
     num_nodes: int
     bm: int
     bk: int
@@ -66,11 +77,18 @@ class BlockCSR:
     def nnzb(self) -> int:
         return int(self.vals.shape[0])
 
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
+
     def to(self, device) -> "BlockCSR":
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if torch.is_tensor(getattr(self, f.name))})
+        """Move what K3 reads (the two edge CSRs); the tiles stay where they
+        are (on the host as built: ~1 GB at Cora ×6)."""
+        return dataclasses.replace(self, **{name: getattr(self, name).to(device)
+                                            for name in _EDGE_FIELDS})
+
+
+_EDGE_FIELDS = ("indptr", "indices", "data", "indptr_t", "indices_t", "data_t")
 
 
 def _build_one(dst: np.ndarray, src: np.ndarray, w: np.ndarray, n_pad: int,
@@ -101,13 +119,25 @@ def _row_ptr(rows: np.ndarray, n_rows: int) -> np.ndarray:
     return np.searchsorted(rows, np.arange(n_rows + 1), side="left").astype(np.int32)
 
 
+def _edge_csr(dst: np.ndarray, src: np.ndarray, w: np.ndarray, n: int):
+    """CSR of the (n × n) matrix with entries w at (dst, src): rows by dst,
+    columns sorted within a row, duplicates summed in edge order (as
+    ``np.add.at`` sums them into the tiles)."""
+    key = dst.astype(np.int64) * n + src
+    uniq, inv = np.unique(key, return_inverse=True)
+    data = np.zeros(len(uniq), np.float32)
+    np.add.at(data, inv.reshape(-1), w)
+    indptr = np.searchsorted(uniq // n, np.arange(n + 1), side="left")
+    return indptr.astype(np.int32), (uniq % n).astype(np.int32), data
+
+
 def build_block_csr(senders, receivers, edge_mask, num_nodes: int,
                     bm: int = 128, bk: int = 128, dtype=np.float32,
                     pad_to: int | None = None) -> BlockCSR:
     """Host-side (numpy) construction, once per graph; tensors on the CPU.
 
     ``pad_to`` fixes the tile count (pad tiles repeat the last row with zero
-    values, so they add nothing)."""
+    values, so they add nothing); the edge CSRs are the same either way."""
     senders = np.asarray(senders)
     receivers = np.asarray(receivers)
     w = np.asarray(edge_mask, np.float32)
@@ -128,11 +158,15 @@ def build_block_csr(senders, receivers, edge_mask, num_nodes: int,
 
     vals, rows, cols = pad(vals, rows, cols)
     vals_t, rows_t, cols_t = pad(vals_t, rows_t, cols_t)
+    indptr, indices, data = _edge_csr(dst, src, w, num_nodes)
+    indptr_t, indices_t, data_t = _edge_csr(src, dst, w, num_nodes)
     t = torch.from_numpy
     return BlockCSR(vals=t(vals), rows=t(rows), cols=t(cols), vals_t=t(vals_t),
                     rows_t=t(rows_t), cols_t=t(cols_t),
                     row_ptr=t(_row_ptr(rows, n_pad // bm)),
                     row_ptr_t=t(_row_ptr(rows_t, n_pad // bk)),
+                    indptr=t(indptr), indices=t(indices), data=t(data),
+                    indptr_t=t(indptr_t), indices_t=t(indices_t), data_t=t(data_t),
                     num_nodes=num_nodes, bm=bm, bk=bk)
 
 
@@ -162,7 +196,8 @@ def rcm_order(senders, receivers, num_nodes: int) -> np.ndarray:
 def csr_matvec_reference(vals: torch.Tensor, rows: torch.Tensor,
                          cols: torch.Tensor, h: torch.Tensor, eps, mode: str,
                          num_nodes: int) -> torch.Tensor:
-    """The plain version of K3: ``A @ h + (1+eps) h`` over the tiles.
+    """``A @ h + (1+eps) h`` over the tiles: the tile oracle, with K3's
+    rounding per mode (the TPU kernel's arithmetic).
 
     Each tile is multiplied with the slice of h at its column, the products
     are summed per tile row with ``index_add_``. ``highest`` takes f32
@@ -192,26 +227,56 @@ def csr_matvec_reference(vals: torch.Tensor, rows: torch.Tensor,
     return agg.view(n_pad, f)[:n0] + (1.0 + eps) * h
 
 
-def _launch(vals, row_ptr, cols, h, eps, mode: str, num_nodes: int) -> torch.Tensor:
-    """Check the operands and launch K3 once over the given tiles."""
+def csr_edges_reference(indptr: torch.Tensor, indices: torch.Tensor,
+                        data: torch.Tensor, h: torch.Tensor, eps,
+                        mode: str) -> torch.Tensor:
+    """The plain version of K3: ``A @ h + (1+eps) h`` over A's CSR.
+
+    Gathers h at every nonzero's column, scales it by the nonzero with the
+    kernel's rounding and sums per row with ``index_add_``. ``highest``
+    takes f32 products; ``split`` rounds h to hi = bf16(h) and
+    lo = bf16(h - hi) and sums a·hi + a·lo; ``bf16`` takes a·bf16(h); the
+    last two round a to bf16 (exact for edge multiplicities)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {list(MODES)}")
+    n = indptr.shape[0] - 1
+    if h.shape[0] != n:
+        raise ValueError(f"h {tuple(h.shape)} does not match {n} CSR rows")
+    rows = torch.repeat_interleave(torch.arange(n, device=h.device),
+                                   indptr.long().diff(), output_size=indices.shape[0])
+    src = indices.long()
+    a = data.to(torch.float32)[:, None]
+    if mode == "highest":
+        msgs = a * h[src]
+    else:
+        a = a.to(torch.bfloat16).to(torch.float32)
+        hi = h.to(torch.bfloat16).to(torch.float32)
+        msgs = a * hi[src]
+        if mode == "split":
+            lo = (h - hi).to(torch.bfloat16).to(torch.float32)
+            msgs = msgs + a * lo[src]
+    agg = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    agg.index_add_(0, rows, msgs)
+    return agg + (1.0 + eps) * h
+
+
+def _launch(indptr, indices, data, h, eps, mode: str) -> torch.Tensor:
+    """Check the operands and launch K3 once over the given CSR."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {list(MODES)}")
     if h.device.type != "cuda" or any(t.device != h.device
-                                      for t in (vals, row_ptr, cols)):
-        raise ValueError(f"K3 needs the tiles and h on one CUDA device, got "
-                         f"{vals.device} and {h.device}")
-    if h.dtype != torch.float32 or vals.dtype != torch.float32:
-        raise TypeError(f"K3 takes f32 h and tiles, got {h.dtype}, {vals.dtype}")
-    if row_ptr.dtype != torch.int32 or cols.dtype != torch.int32:
-        raise TypeError("K3 takes i32 row_ptr and cols")
-    if vals.dim() != 3 or tuple(vals.shape[1:]) != (128, 128):
-        raise ValueError(f"K3 takes 128 x 128 tiles, got {tuple(vals.shape)}")
+                                      for t in (indptr, indices, data)):
+        raise ValueError(f"K3 needs the CSR and h on one CUDA device, got "
+                         f"{indptr.device} and {h.device}")
+    if h.dtype != torch.float32 or data.dtype != torch.float32:
+        raise TypeError(f"K3 takes f32 h and data, got {h.dtype}, {data.dtype}")
+    if indptr.dtype != torch.int32 or indices.dtype != torch.int32:
+        raise TypeError("K3 takes i32 indptr and indices")
     n, f = h.shape
-    n_rows = row_ptr.shape[0] - 1
-    if n > num_nodes or n_rows != _round_up(num_nodes, 128) // 128:
-        raise ValueError(f"h {tuple(h.shape)} and {n_rows} tile rows do not "
-                         f"match {num_nodes} nodes")
-    if not all(t.is_contiguous() for t in (vals, row_ptr, cols, h)):
+    if indptr.shape[0] != n + 1 or indices.shape != data.shape:
+        raise ValueError(f"h {tuple(h.shape)} does not match a CSR of "
+                         f"{indptr.shape[0] - 1} rows")
+    if not all(t.is_contiguous() for t in (indptr, indices, data, h)):
         raise ValueError("K3 takes contiguous operands")
     if not torch.is_tensor(eps):
         eps = torch.tensor([float(eps)], dtype=torch.float32, device=h.device)
@@ -220,22 +285,21 @@ def _launch(vals, row_ptr, cols, h, eps, mode: str, num_nodes: int) -> torch.Ten
     eps = eps.detach().reshape(1).contiguous()
     out = torch.empty_like(h)
     code = _build.library().csr_spmm(
-        vals.data_ptr(), row_ptr.data_ptr(), cols.data_ptr(), h.data_ptr(),
-        eps.data_ptr(), out.data_ptr(), n_rows, n, f, MODES[mode],
-        h.device.index, torch.cuda.current_stream(h.device).cuda_stream)
+        indptr.data_ptr(), indices.data_ptr(), data.data_ptr(), h.data_ptr(),
+        eps.data_ptr(), out.data_ptr(), n, f, MODES[mode], h.device.index,
+        torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(code, "csr_spmm")
     return out
 
 
 def csr_spmm_fwd(bsr: BlockCSR, h: torch.Tensor, eps,
                  mode: str = "split") -> torch.Tensor:
-    """Launch K3 over the tiles of A: ``A @ h + (1+eps) h`` -> [N, F] f32.
+    """Launch K3 over the CSR of A: ``A @ h + (1+eps) h`` -> [N, F] f32.
 
-    ``bsr`` and ``h`` ([N, F] f32, contiguous) on one card, ``eps`` a float
-    or a 1-element f32 tensor there. Raises on anything else and when the
-    kernel does not build or launch. Records no autograd graph."""
-    out = _launch(bsr.vals, bsr.row_ptr, bsr.cols, h.detach(), eps, mode,
-                  bsr.num_nodes)
+    ``bsr``'s edge CSRs and ``h`` ([N, F] f32, contiguous) on one card,
+    ``eps`` a float or a 1-element f32 tensor there. Raises on anything else
+    and when the kernel does not build or launch. Records no autograd graph."""
+    out = _launch(bsr.indptr, bsr.indices, bsr.data, h.detach(), eps, mode)
     csr_spmm_fwd.launches += 1
     return out
 
@@ -245,10 +309,9 @@ csr_spmm_fwd.launches = 0
 
 def csr_spmm_bwd(bsr: BlockCSR, g: torch.Tensor, eps,
                  mode: str = "split") -> torch.Tensor:
-    """Launch K3 over the tiles of Aᵀ: ``Aᵀ @ g + (1+eps) g`` -> [N, F] f32,
+    """Launch K3 over the CSR of Aᵀ: ``Aᵀ @ g + (1+eps) g`` -> [N, F] f32,
     the gradient of ``csr_spmm_fwd`` with respect to h."""
-    out = _launch(bsr.vals_t, bsr.row_ptr_t, bsr.cols_t, g.detach(), eps, mode,
-                  bsr.num_nodes)
+    out = _launch(bsr.indptr_t, bsr.indices_t, bsr.data_t, g.detach(), eps, mode)
     csr_spmm_bwd.launches += 1
     return out
 
@@ -257,20 +320,19 @@ csr_spmm_bwd.launches = 0
 
 
 def _on_cpu(bsr: BlockCSR, h: torch.Tensor) -> bool:
-    return h.device.type == "cpu" and bsr.vals.device.type == "cpu"
+    return h.device.type == "cpu" and bsr.indptr.device.type == "cpu"
 
 
 class _SpmmCsr(torch.autograd.Function):
-    """K3 forward and backward as one differentiable op (plain versions on
-    CPU tensors). The tiles get no gradient."""
+    """K3 forward and backward as one differentiable op (the plain version
+    on CPU tensors). The adjacency gets no gradient."""
 
     @staticmethod
     def forward(ctx, h, eps, bsr, mode):
         ctx.bsr, ctx.mode = bsr, mode
         ctx.save_for_backward(h, eps)
         if _on_cpu(bsr, h):
-            return csr_matvec_reference(bsr.vals, bsr.rows, bsr.cols, h, eps,
-                                        mode, bsr.num_nodes)
+            return csr_edges_reference(bsr.indptr, bsr.indices, bsr.data, h, eps, mode)
         return csr_spmm_fwd(bsr, h, eps, mode)
 
     @staticmethod
@@ -281,8 +343,8 @@ class _SpmmCsr(torch.autograd.Function):
         g = g.contiguous()
         if ctx.needs_input_grad[0]:
             if _on_cpu(bsr, g):
-                dh = csr_matvec_reference(bsr.vals_t, bsr.rows_t, bsr.cols_t, g,
-                                          eps, ctx.mode, bsr.num_nodes)
+                dh = csr_edges_reference(bsr.indptr_t, bsr.indices_t, bsr.data_t, g,
+                                         eps, ctx.mode)
             else:
                 dh = csr_spmm_bwd(bsr, g, eps, ctx.mode)
         if ctx.needs_input_grad[1]:
@@ -292,8 +354,8 @@ class _SpmmCsr(torch.autograd.Function):
 
 def spmm_csr(bsr: BlockCSR, h: torch.Tensor, eps,
              mode: str = "split") -> torch.Tensor:
-    """``A @ h + (1+eps) h`` over block-CSR tiles, differentiable in ``h``
-    (``Aᵀ g + (1+eps) g`` over the transposed tiles) and ``eps``
+    """``A @ h + (1+eps) h`` over A's nonzeros, differentiable in ``h``
+    (``Aᵀ g + (1+eps) g`` over the CSR of Aᵀ) and ``eps``
     (``Σ g ⊙ h``): K3 for CUDA tensors, its plain version on the CPU."""
     if not torch.is_tensor(eps):
         eps = torch.tensor([float(eps)], dtype=torch.float32, device=h.device)
