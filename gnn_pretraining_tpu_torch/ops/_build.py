@@ -104,10 +104,12 @@ def library() -> ctypes.CDLL:
             entry.restype = i
         lib.gin_spmm_workspace.argtypes = [i, i, i, i]
         lib.gin_spmm_workspace.restype = ctypes.c_longlong
-        lib.ntxent_fwd.argtypes = [p] * 6 + [i, i, i, p]
-        for entry in (lib.ntxent_bwd_rows, lib.ntxent_bwd_cols):
-            entry.argtypes = [p] * 7 + [i, i, i, p]
-        for entry in (lib.ntxent_fwd, lib.ntxent_bwd_rows, lib.ntxent_bwd_cols):
+        lib.ntxent_fwd.argtypes = [p] * 10 + [i] * 5 + [p]
+        lib.ntxent_bwd.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.ntxent_launch_floor.argtypes = [i, p]
+        lib.ntxent_blocks_per_sm.argtypes = [i, i]
+        lib.ntxent_blocks_per_sm.restype = i
+        for entry in (lib.ntxent_fwd, lib.ntxent_bwd, lib.ntxent_launch_floor):
             entry.restype = i
         lib.csr_spmm.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.csr_spmm.restype = i

@@ -8,16 +8,19 @@ what ``ops.sddmm.nt_xent_loss`` computes, ``(loss_sum, num_rows)``, without a
     (Ẑ); the normalization and its VJP stay in PyTorch, as in JAX;
   * ``ntxent_fwd`` (K2 fwd) returns per row the loss, the max and the
     softmax denominator of the masked similarity row S = ẐẐᵀ/τ;
-  * ``ntxent_bwd_rows`` / ``ntxent_bwd_cols`` (K2 bwd) return G·Ẑ and Gᵀ·Ẑ,
-    with G = (softmax(S) − onehot(positive))·g_row/τ recomputed from the
-    saved max and denominator; dẐ is their sum.
+  * ``ntxent_bwd`` (K2 bwd) returns dẐ = G·Ẑ + Gᵀ·Ẑ in one pass over S, with
+    G = (softmax(S) − onehot(positive))·g_row/τ recomputed from the saved
+    max and denominator.
 
-Each of the three launch wrappers takes CUDA tensors only and counts its
-launches (``ntxent_fwd.launches``, ...); each has a plain PyTorch version
-(``*_reference``) that computes the same function through the full matrix.
-``nt_xent`` is one ``torch.autograd.Function``: on CUDA tensors it launches the
-kernels (or raises), on CPU tensors it runs the plain versions. τ gets no
-gradient: it comes from a schedule.
+Each launch wrapper takes CUDA tensors only and counts its launches
+(``ntxent_fwd.launches``, ``ntxent_bwd.launches``); each has a plain PyTorch
+version (``*_reference``) that computes the same function through the full
+matrix; ``ntxent_bwd_reference`` is the sum of the plain versions of the
+TPU's two backward kernels, ``ntxent_bwd_rows_reference`` (G·Ẑ) and
+``ntxent_bwd_cols_reference`` (Gᵀ·Ẑ). ``plan`` is the kernels' grid. ``nt_xent``
+is one ``torch.autograd.Function``: on CUDA tensors it launches the kernels
+(or raises), on CPU tensors it runs the plain versions. τ gets no gradient:
+it comes from a schedule.
 """
 
 from __future__ import annotations
@@ -82,6 +85,37 @@ def ntxent_bwd_cols_reference(zhat, vv, temp, mx, den, g):
     return _grad_matrix(zhat, vv, temp, mx, den, g).t() @ zhat
 
 
+def ntxent_bwd_reference(zhat, vv, temp, mx, den, g):
+    """The plain version of K2 bwd: G·Ẑ + Gᵀ·Ẑ."""
+    return (ntxent_bwd_rows_reference(zhat, vv, temp, mx, den, g)
+            + ntxent_bwd_cols_reference(zhat, vv, temp, mx, den, g))
+
+
+TILE = 32            # rows of a block's tile and columns of a column tile
+BLOCKS_PER_SM = 2    # K2 blocks resident on one SM (100 KB of shared memory each)
+MAX_CHUNKS = 32      # column chunks a launch may take
+
+
+def plan(rows: int, sms: int):
+    """K2's grid for R = ``rows`` on ``sms`` SMs: (row tiles, chunks, tiles
+    per chunk). Block (i, c) takes row tile i against column tiles
+    [c·per, (c+1)·per); the column axis is split into the fewest chunks that
+    give about one wave of ``BLOCKS_PER_SM`` blocks per SM, none empty."""
+    tiles = -(-rows // TILE)
+    chunks = min(tiles, MAX_CHUNKS, max(1, -(-BLOCKS_PER_SM * sms // tiles)))
+    per = -(-tiles // chunks)
+    return tiles, -(-tiles // per), per
+
+
+_SMS = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
+
+
 def _check(zhat: torch.Tensor, *vectors: torch.Tensor) -> None:
     if zhat.device.type != "cuda":
         raise ValueError(f"K2 takes CUDA tensors, got {zhat.device}")
@@ -95,6 +129,28 @@ def _check(zhat: torch.Tensor, *vectors: torch.Tensor) -> None:
         raise ValueError(f"K2 takes τ [1] and row vectors [{rows}]")
 
 
+def _launch(entry: str, zhat, vv, temp, vectors, outs, part_per_chunk: int) -> None:
+    """One K2 call: the scratch the C entry asks for in one allocation (the
+    hi/lo split of Ẑ, each row's coefficients, and with more than one chunk
+    the chunks' partials and a counter per row tile), then the launch."""
+    rows, d = zhat.shape
+    tiles, chunks, per = plan(rows, _sm_count(zhat.device))
+    split = chunks > 1
+    sizes = (2 * rows * D_MAX, 4 * rows, chunks * part_per_chunk if split else 0,
+             tiles if split else 0)
+    ws = torch.empty(sum(sizes), device=zhat.device)
+    offsets = [0]
+    for size in sizes[:-1]:
+        offsets.append(offsets[-1] + size)
+    zs, aux, part, count = (ws.data_ptr() + 4 * o if n else None
+                            for o, n in zip(offsets, sizes))
+    code = getattr(_build.library(), entry)(
+        zhat.data_ptr(), vv.data_ptr(), temp.data_ptr(),
+        *(v.data_ptr() for v in vectors), *(o.data_ptr() for o in outs),
+        zs, aux, part, count, rows, d, chunks, per, *_stream(zhat))
+    _build.check(code, entry)
+
+
 def _stream(t: torch.Tensor):
     return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
 
@@ -103,49 +159,27 @@ def ntxent_fwd(zhat: torch.Tensor, vv: torch.Tensor, temp: torch.Tensor):
     """Launch K2 fwd: per-row (loss, mx, den) [R] f32 of Ẑ [R, d] f32,
     validity ``vv`` [R] f32 and τ ``temp`` [1] f32, all on one card."""
     _check(zhat, temp, vv)
-    rows, d = zhat.shape
-    loss, mx, den = (torch.empty(rows, device=zhat.device) for _ in range(3))
-    code = _build.library().ntxent_fwd(
-        zhat.data_ptr(), vv.data_ptr(), temp.data_ptr(), loss.data_ptr(),
-        mx.data_ptr(), den.data_ptr(), rows, d, *_stream(zhat))
-    _build.check(code, "ntxent_fwd")
+    rows = zhat.shape[0]
+    outs = tuple(torch.empty(rows, device=zhat.device) for _ in range(3))
+    _launch("ntxent_fwd", zhat, vv, temp, (), outs, 3 * rows)
     ntxent_fwd.launches += 1
-    return loss, mx, den
+    return outs
 
 
 ntxent_fwd.launches = 0
 
 
-def _bwd(entry: str, zhat, vv, temp, mx, den, g) -> torch.Tensor:
+def ntxent_bwd(zhat, vv, temp, mx, den, g) -> torch.Tensor:
+    """Launch K2 bwd: dẐ = G·Ẑ + Gᵀ·Ẑ [R, d] f32 (operands as ``ntxent_fwd``
+    plus the saved ``mx``, ``den`` and the per-row upstream gradient ``g`` [R])."""
     _check(zhat, temp, vv, mx, den, g)
-    rows, d = zhat.shape
     out = torch.empty_like(zhat)
-    code = getattr(_build.library(), entry)(
-        zhat.data_ptr(), vv.data_ptr(), temp.data_ptr(), mx.data_ptr(),
-        den.data_ptr(), g.data_ptr(), out.data_ptr(), rows, d, *_stream(zhat))
-    _build.check(code, entry)
+    _launch("ntxent_bwd", zhat, vv, temp, (mx, den, g), (out,), zhat.numel())
+    ntxent_bwd.launches += 1
     return out
 
 
-def ntxent_bwd_rows(zhat, vv, temp, mx, den, g) -> torch.Tensor:
-    """Launch K2 bwd-rows: G·Ẑ [R, d] f32 (operands as ``ntxent_fwd`` plus the
-    saved ``mx``, ``den`` and the per-row upstream gradient ``g`` [R])."""
-    out = _bwd("ntxent_bwd_rows", zhat, vv, temp, mx, den, g)
-    ntxent_bwd_rows.launches += 1
-    return out
-
-
-ntxent_bwd_rows.launches = 0
-
-
-def ntxent_bwd_cols(zhat, vv, temp, mx, den, g) -> torch.Tensor:
-    """Launch K2 bwd-cols: Gᵀ·Ẑ [R, d] f32, operands as ``ntxent_bwd_rows``."""
-    out = _bwd("ntxent_bwd_cols", zhat, vv, temp, mx, den, g)
-    ntxent_bwd_cols.launches += 1
-    return out
-
-
-ntxent_bwd_cols.launches = 0
+ntxent_bwd.launches = 0
 
 
 class _NtXent(torch.autograd.Function):
@@ -169,12 +203,8 @@ class _NtXent(torch.autograd.Function):
     def backward(ctx, g_sum, _g_rows):
         zhat, vv, norm, mx, den, temp = ctx.saved_tensors
         g_rows = (vv * g_sum).contiguous()
-        if zhat.device.type == "cpu":
-            rows_fn, cols_fn = ntxent_bwd_rows_reference, ntxent_bwd_cols_reference
-        else:
-            rows_fn, cols_fn = ntxent_bwd_rows, ntxent_bwd_cols
-        dzhat = (rows_fn(zhat, vv, temp, mx, den, g_rows)
-                 + cols_fn(zhat, vv, temp, mx, den, g_rows))
+        bwd = ntxent_bwd_reference if zhat.device.type == "cpu" else ntxent_bwd
+        dzhat = bwd(zhat, vv, temp, mx, den, g_rows)
         # VJP of ẑ = z/|z|: Ẑ stands in for z/|z| on every valid row, and the
         # invalid rows are masked below.
         dz = (dzhat - zhat * (dzhat * zhat).sum(dim=1, keepdim=True)) / norm

@@ -10,12 +10,18 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 from flax import serialization
 
 from gnn_pretraining_tpu import config
 from gnn_pretraining_tpu.utils import checkpoint as jax_checkpoint
 from gnn_pretraining_tpu_torch.utils import _msgpack
 from gnn_pretraining_tpu_torch.utils import checkpoint as torch_checkpoint
+
+# Small CPU shapes: one intra-op thread per test process. The default, a
+# thread per core in every pytest-xdist worker, spends most of its time
+# spinning and starves the other workers.
+torch.set_num_threads(1)
 
 TRANSFER = sorted((config.ARTIFACTS_DIR / "transfer").glob("*.msgpack"))
 

@@ -16,9 +16,16 @@ import subprocess
 import sys
 from pathlib import Path
 
+import torch
+
 import gnn_pretraining_tpu_torch
 from gnn_pretraining_tpu import config as jax_config
 from gnn_pretraining_tpu_torch import config as torch_config
+
+# Small CPU shapes: one intra-op thread per test process. The default, a
+# thread per core in every pytest-xdist worker, spends most of its time
+# spinning and starves the other workers.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 CONSTANTS = sorted(n for n in dir(jax_config) if n.isupper())

@@ -167,5 +167,5 @@ def test_launch_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         ntxent.ntxent_fwd(zhat, vv, temp)
     with pytest.raises(ValueError, match="CUDA"):
-        ntxent.ntxent_bwd_cols(zhat, vv, temp, vv, vv, vv)
+        ntxent.ntxent_bwd(zhat, vv, temp, vv, vv, vv)
     assert ntxent.ntxent_fwd.launches == before
