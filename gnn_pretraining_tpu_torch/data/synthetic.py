@@ -76,10 +76,15 @@ def synthetic_pretrain_store(domain: str, rng: np.random.Generator,
         perm = rng.permutation(g).astype(np.int64)
         n_val = int(np.ceil(g * config.VAL_FRACTION))
         store.splits = {"train": np.sort(perm[n_val:]), "val": np.sort(perm[:n_val])}
+    return attach_graph_properties(store)
+
+
+def attach_graph_properties(store: GraphStore) -> GraphStore:
+    """Set the store's 12 graph properties, z-scored on its train split."""
     props = np.stack([
         compute_graph_properties(store.edge_index[:, store.edge_offsets[i]:store.edge_offsets[i + 1]],
                                  int(store.node_offsets[i + 1] - store.node_offsets[i]))
-        for i in range(g)])
+        for i in range(store.num_graphs)])
     store.graph_properties = standardize_properties(props, store.splits["train"])
     return store
 

@@ -8,6 +8,10 @@ from gnn_pretraining_tpu_torch.models.gnn import (
     InputEncoder,
     TorchLinear,
 )
-from gnn_pretraining_tpu_torch.models.heads import MLPHead, MLPLinkPredictor
+from gnn_pretraining_tpu_torch.models.heads import (
+    DomainClassifierHead,
+    MLPHead,
+    MLPLinkPredictor,
+)
 from gnn_pretraining_tpu_torch.models.norm import MaskedBatchNorm
 from gnn_pretraining_tpu_torch.models.pretrain_model import PretrainableGNN

@@ -4,11 +4,15 @@ Port of ``gnn_pretraining_tpu/pretrain/pretrain.py`` (reference
 src/pretrain/pretrain.py:96-353), the per-step path. One train step:
 
   1. each task's loss over all domains, and its own gradient
-     (``torch.autograd.grad``; a parameter no task reaches gets zeros);
-  2. the adaptive loss balancer (a metric: the update does not use its
-     weights, as in the JAX step);
-  3. PCGrad over the per-task gradients (more than one task), torch-style
-     clipping to norm 0.5, one AdamW step with per-task head learning rates;
+     (``torch.autograd.grad``; a parameter no task reaches gets zeros); the
+     domain-adversarial task runs last;
+  2. the adaptive loss balancer over the main tasks (a metric: the update
+     does not use its weights, as in the JAX step);
+  3. PCGrad over the main tasks' gradients (more than one task), then the
+     domain-adversarial gradient added (JAX ``update_core``, the reference's
+     GRL gradient reaching the shared parameters beside the surgery), then
+     torch-style clipping to norm 0.5 and one AdamW step with per-task head
+     learning rates;
   4. the same metric keys as the JAX step.
 
 The host loop samples the balanced multi-domain batches, evaluates every
@@ -19,10 +23,10 @@ and stops after ``epochs // 2`` epochs without improvement. With
 ``aggregation="pallas"`` every GIN layer runs K1 forward and backward, and
 every NT-Xent runs K2.
 
-Left for later: the chunked ``lax.scan`` runner (its per-step semantics are
-these), ``--resume`` with the optimizer state, ``--data_parallel``, the
-fidelity block of the run summary, and the tasks other than the contrastive
-two (``pretrain.tasks``).
+Every scheme of ``config.ALL_SCHEMES`` runs. Left for later: the chunked
+``lax.scan`` runner (its per-step semantics are these), ``--resume`` with the
+optimizer state, ``--data_parallel`` and the fidelity block of the run
+summary.
 """
 
 from __future__ import annotations
@@ -49,10 +53,10 @@ from gnn_pretraining_tpu_torch.pretrain.optimizers import (
     create_task_specific_optimizer,
 )
 from gnn_pretraining_tpu_torch.pretrain.pcgrad import apply_pcgrad
-from gnn_pretraining_tpu_torch.pretrain.schedulers import temperature_at
+from gnn_pretraining_tpu_torch.pretrain.schedulers import grl_lambda_at, temperature_at
 from gnn_pretraining_tpu_torch.pretrain.tasks import (
-    TASK_FNS,
     TaskContext,
+    TaskDraws,
     compute_task_loss,
 )
 from gnn_pretraining_tpu_torch.utils.checkpoint import save_checkpoint
@@ -82,30 +86,38 @@ def build_pretrain_model(cfg: config.PretrainConfig, aggregation: str,
     return model
 
 
-def _context(step: int, total_steps: int, views: ViewSource, device) -> TaskContext:
+def _context(step: int, total_steps: int, views: ViewSource, draws: TaskDraws,
+             device) -> TaskContext:
     temp = torch.tensor([temperature_at(step, total_steps)], device=device)
-    return TaskContext(temperature=temp, views=views)
+    lam = torch.tensor([grl_lambda_at(step, total_steps)], device=device)
+    return TaskContext(temperature=temp, views=views, grl_lambda=lam, draws=draws)
 
 
 def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimizer,
                     total_steps: int, views: ViewSource,
-                    pcgrad_generator: Optional[torch.Generator] = None):
+                    pcgrad_generator: Optional[torch.Generator] = None,
+                    draws: Optional[TaskDraws] = None):
     """``train_step(state, domain_batches, perm=None) -> metrics`` (device
     tensors). It updates the model, the optimizer and ``state``; ``perm``
-    replaces PCGrad's draw of the task order. ``train_step.last_task_grads``
-    holds the last step's per-task gradients (task -> one tensor per
-    parameter, in ``named_parameters`` order), before PCGrad."""
+    replaces PCGrad's draw of the task order; ``draws`` hands node-feature
+    masking and link prediction their uniforms (unseeded by default: a
+    scheme with those tasks needs one). ``train_step.last_task_grads`` holds
+    the last step's per-task gradients (task -> one tensor per parameter, in
+    ``named_parameters`` order), before PCGrad, the domain-adversarial one
+    among them."""
     tasks = [t for t in cfg.active_tasks if t != "domain_adv"]
+    has_da = "domain_adv" in cfg.active_tasks
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     top_keys = [n.split(".")[0] for n in names]
     device = params[0].device
+    draws = draws if draws is not None else TaskDraws(device)
 
     def train_step(state: PretrainState, domain_batches, perm=None):
         model.train()
-        ctx = _context(state.opt_step, total_steps, views, device)
+        ctx = _context(state.opt_step, total_steps, views, draws, device)
         task_losses, per_domain_task, grads = {}, {}, {}
-        for t in tasks:
+        for t in tasks + ["domain_adv"] * has_da:
             loss, per_domain = compute_task_loss(t, model, domain_batches, ctx)
             g = torch.autograd.grad(loss, params, allow_unused=True)
             grads[t] = [torch.zeros_like(p) if gi is None else gi
@@ -113,7 +125,9 @@ def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimize
             task_losses[t] = loss.detach()
             per_domain_task[t] = {d: v.detach() for d, v in per_domain.items()}
 
-        train_step.last_task_grads = grads
+        train_step.last_task_grads = dict(grads)
+        da_loss = task_losses.pop("domain_adv", None)
+        da_grads = grads.pop("domain_adv", None)
         total, weights, state.balancer_step = balance_losses(task_losses,
                                                              state.balancer_step)
         if len(tasks) > 1:
@@ -121,6 +135,8 @@ def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimize
                                              generator=pcgrad_generator, perm=perm)
         else:
             combined, metrics = grads[tasks[0]], {}
+        if has_da:                                 # after PCGrad, before clipping
+            combined = torch._foreach_add(combined, da_grads)
         clipped, pre_norm = clip_grads_torch(combined)
         for p, g in zip(params, clipped):
             p.grad = g
@@ -139,6 +155,12 @@ def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimize
             metrics[f"train/loss/{t}"] = v
         for d in cfg.pretrain_domains:
             metrics[f"train/loss/{d}"] = sum(per_domain_task[t][d] for t in per_domain_task)
+        if has_da:
+            metrics["train/loss/domain_adv"] = da_loss
+            metrics["train/domain_adv/loss"] = da_loss
+            # The reference logs λ after stepping its scheduler (pretrain.py:173).
+            metrics["train/domain_adv/lambda"] = torch.tensor(
+                grl_lambda_at(state.opt_step + 1, total_steps), device=device)
         state.opt_step += 1
         return metrics
 
@@ -147,14 +169,16 @@ def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimize
 
 
 def make_eval_fn(model: PretrainableGNN, cfg: config.PretrainConfig,
-                 total_steps: int, views: ViewSource):
-    """``eval_task_batch(task, domain, batch, step) -> loss`` in eval mode."""
+                 total_steps: int, views: ViewSource, draws: Optional[TaskDraws] = None):
+    """``eval_task_batch(task, domain, batch, step) -> loss`` in eval mode;
+    each call takes fresh views, masks and negatives."""
     device = next(model.parameters()).device
+    draws = draws if draws is not None else TaskDraws(device)
 
     @torch.no_grad()
     def eval_task_batch(task: str, domain: str, batch, step: int) -> torch.Tensor:
         model.eval()
-        ctx = _context(step, total_steps, views, device)
+        ctx = _context(step, total_steps, views, draws, device)
         loss, _ = compute_task_loss(task, model, {domain: batch}, ctx)
         return loss
 
@@ -191,6 +215,8 @@ def run_evaluation(eval_fn, state: PretrainState, cfg, val_loaders, logger,
     for t, v in per_task.items():
         metrics[f"val/loss/{t}"] = v
     metrics["val/loss/total"] = total
+    if "domain_adv" in per_task:
+        metrics["val/domain_adv/loss"] = per_task["domain_adv"]
     logger.log(metrics, step=global_step)
     return total, metrics, balancer_step
 
@@ -202,10 +228,6 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
 
     Runs on the card unless ``device="cpu"``. Checkpoints go to
     ``out_root/pretrain``, metrics to ``out_root/metrics``."""
-    missing = [t for t in cfg.active_tasks if t not in TASK_FNS]
-    if missing:
-        raise NotImplementedError(f"scheme {cfg.exp_name} needs tasks {missing}, "
-                                  "not ported yet: ROADMAP queue 1")
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -230,10 +252,11 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
     optimizer, _, _ = create_task_specific_optimizer(model, cfg.active_tasks)
     views = ViewSource(device, seed=cfg.seed + 2)
     pcgrad_generator = torch.Generator().manual_seed(cfg.seed + 3)
+    draws = TaskDraws(device, seed=cfg.seed + 4)
     state = PretrainState()
     train_step = make_train_step(model, cfg, optimizer, total_steps, views,
-                                 pcgrad_generator)
-    eval_fn = make_eval_fn(model, cfg, total_steps, views)
+                                 pcgrad_generator, draws)
+    eval_fn = make_eval_fn(model, cfg, total_steps, views, draws)
 
     # Aggregations per step and domain: two views per contrastive task.
     forwards = sum(2 if t in ("node_contrast", "graph_contrast") else 1
@@ -293,7 +316,8 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
 
 def main() -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--exp_name", type=str, required=True)
+    parser.add_argument("--exp_name", type=str, required=True,
+                        choices=config.ALL_SCHEMES)
     parser.add_argument("--seed", type=int, required=True)
     parser.add_argument("--epochs", type=int, default=config.PRETRAIN_EPOCHS)
     parser.add_argument("--aggregation", type=str, default="pallas",

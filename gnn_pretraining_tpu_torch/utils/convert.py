@@ -14,6 +14,8 @@ package's reference importer (``gnn_pretraining_tpu/utils/torch_import.py``):
   ``linear_{j}`` (MLPHead)           -> ``mlp.{3j}``
   ``input_encoders_{D}``             -> ``input_encoders.{D}``
   ``heads_{task}_{D}`` (per domain)  -> ``heads_{task}.{D}``
+  ``heads_link_pred/predictor/linear_{j}``   -> ``heads_link_pred.predictor.mlp.{3j}``
+  ``heads_domain_adv/classifier/linear_{j}`` -> ``heads_domain_adv.classifier.mlp.{3j}``
 
 ``state_dict_to_variables`` is the inverse (a linear ``weight`` is told from
 a BatchNorm one by its rank).

@@ -11,6 +11,8 @@ plain version of K1.
 
 from __future__ import annotations
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from gnn_pretraining_tpu.models import gnn as jax_gnn
 from gnn_pretraining_tpu.models import heads as jax_heads
 from gnn_pretraining_tpu.models import norm as jax_norm
 from gnn_pretraining_tpu.ops.spmm import build_dense_adjacency as jax_adjacency
+from gnn_pretraining_tpu.pretrain import pretrain as jax_pretrain
 from gnn_pretraining_tpu_torch.models import (
     FinetuneGNN,
     GINBackbone,
@@ -30,9 +33,13 @@ from gnn_pretraining_tpu_torch.models import (
     MaskedBatchNorm,
     MLPHead,
     MLPLinkPredictor,
+    PretrainableGNN,
 )
 from gnn_pretraining_tpu_torch.ops.spmm import build_dense_adjacency
-from gnn_pretraining_tpu_torch.utils.convert import variables_to_state_dict
+from gnn_pretraining_tpu_torch.utils.convert import (
+    state_dict_to_variables,
+    variables_to_state_dict,
+)
 
 # Small CPU shapes: one intra-op thread per test process. The default, a
 # thread per core in every pytest-xdist worker, spends most of its time
@@ -186,3 +193,32 @@ def test_finetune_gnn(graph, domain):
                        **torch_edges(graph, aggregation), **textra)
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL,
                                    err_msg=aggregation)
+
+
+def test_s5_variable_tree_round_trips_bit_for_bit():
+    """The JAX package's whole scheme-s5 variable tree (the four encoders, the
+    backbone, the per-domain heads of masking, node and graph contrast and
+    graph properties, the shared link predictor and domain classifier, the
+    mask token), filled with seeded values, into the port's PretrainableGNN
+    (every key and shape, strictly) and back: bit for bit."""
+    cfg = config.PretrainConfig("s5", 0)
+    rng = np.random.default_rng(6)
+    sample = {d: types.SimpleNamespace(
+        x=np.zeros((8, config.DOMAIN_DIMENSIONS[d]), np.float32),
+        node_mask=np.ones(8, np.float32), senders=np.arange(8, dtype=np.int32),
+        receivers=np.roll(np.arange(8, dtype=np.int32), 1), edge_mask=np.ones(8, np.float32))
+        for d in cfg.pretrain_domains}
+    shapes = jax.eval_shape(lambda: jax_pretrain._init_model_impl(cfg, sample, "dense")[1])
+    want = jax.tree_util.tree_map(
+        lambda s: rng.normal(size=s.shape).astype(s.dtype), shapes)
+    model = PretrainableGNN(cfg.pretrain_domains, cfg.active_tasks, "dense", device="cpu")
+    model.load_state_dict(variables_to_state_dict(want))          # strict
+    got = state_dict_to_variables(model.state_dict())
+    assert set(got["params"]) == set(want["params"]) and len(want["params"]) == 24
+    flat_got = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    flat_want = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    assert flat_got.keys() == flat_want.keys()
+    for k, w in flat_want.items():
+        g = flat_got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(k))
