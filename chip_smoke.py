@@ -68,7 +68,23 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 f32 path on the same permuted graph with the same dropout
                 seed, ReLU branches and negatives; then finetune(
                 aggregation="csr") for 2 epochs on Cora_NC and 1 on Cora_LP;
- 11. timing  -- device-time medians (each call queued behind a sleep
+ 11. resume  -- pretrain() s5 at full width on K1 and K2 over the four
+                datasets' stores cut to RESUME_STORE_GRAPHS graphs each (the
+                graph sizes of phase 8's), so that an epoch is a handful of
+                steps: run A for 6 epochs with resume=True, run B the same
+                but stopped after its epoch-5 resume file, then B' =
+                pretrain(resume=True). B's file restores onto a fresh model,
+                optimizer and streams on the card, every tensor and
+                generator state bitwise equal to the file's; B' starts at
+                epoch 6, logs A's number of epoch-6 steps, launches K1 and
+                K2 exactly steps x phase 8's per-step counts (and the
+                epoch's evaluation forwards), ends with A's params and
+                epoch-6 losses within RESUME_PARAM_TOL / RESUME_LOSS_TOL
+                (not bitwise: index_add_ and scatter reductions add in the
+                order their atomics land), and its summary's fidelity block
+                is complete and accepted by cell_completed; save and load
+                milliseconds and the file's bytes;
+ 12. timing  -- device-time medians (each call queued behind a sleep
                 kernel, so the host's launch cost is left out; the time per
                 call beside it) of K1 fwd and bwd (split, and bf16), of the
                 three K2 kernels and of K3 fwd and bwd (Cora_NC 6x and the
@@ -80,7 +96,7 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 each train step, csr ones included, and of the K2 Function
                 against the plain NT-Xent formula (forward + backward) from
                 16 to 8192 rows;
- 12. profile -- each serving forward's and train step's device time by kernel
+ 13. profile -- each serving forward's and train step's device time by kernel
                 (torch.profiler) and the share of its time the card idles.
 
 The build phase prints every kernel's registers, shared memory and spills
@@ -194,6 +210,20 @@ NTXENT_GRAD_TOL = 1e-4
 NTXENT_MULTI_TILE_ROWS = 4104       # > 4096, ragged against the 32-row tiles
 NTXENT_VALID_SHARE = 0.7            # of node pairs; graph rows all valid
 CROSSOVER_ROWS = (4096, 8192)       # besides the rows of the ntxent phase
+# The resume phase: pretrain() s5 on the four datasets' stores cut to 48
+# graphs each, 8 graphs per domain per step: 5 steps per epoch. The resume
+# file is written after epoch 5 (RESUME_EVERY) and after the last, the 6th.
+RESUME_SCHEME = "s5"
+RESUME_EPOCHS = 6
+RESUME_STORE_GRAPHS = 48
+# B' against A after the 6th epoch. Losses of epoch 6 (each step's total and
+# task losses, the validation total): relative, as a train step against its
+# twin (TRAIN_LOSS_TOL). Parameters: max |B' - A| over the run's AdamW
+# budget, the default learning rate times the run's steps: an element whose
+# gradient is rounding noise moves by up to ~lr a step either way, so the
+# two runs may part by that much there (their relative L2 is printed beside).
+RESUME_LOSS_TOL = TRAIN_LOSS_TOL
+RESUME_PARAM_TOL = 1.0
 TIMING_REPS = 30
 WARMUP = 5
 SLEEP_CYCLES = 1_000_000            # device_ms: ~0.5 ms of card time per call
@@ -1184,6 +1214,190 @@ def pretrain_entry_phase(device, entry_dir: Path, out_root: Path, scheme: str) -
     return seconds / len(train_rows)
 
 
+class Stopped(Exception):
+    """Raised in place of the rest of run B after its epoch-5 resume file."""
+
+
+def resume_stores(resume_dir: Path) -> dict:
+    """The four datasets' stores of phase 8 cut to RESUME_STORE_GRAPHS graphs
+    each (drawn as phase 8's are, so with the same graph sizes)."""
+    from gnn_pretraining_tpu_torch.data.batch import GraphStore
+    from gnn_pretraining_tpu_torch.data.synthetic import (
+        PRETRAIN_SIZES,
+        synthetic_pretrain_store,
+    )
+
+    rng = np.random.default_rng(SEED + 5)
+    sizes = {}
+    for name in PRETRAIN_SIZES:
+        synthetic_pretrain_store(name, rng, RESUME_STORE_GRAPHS).save(resume_dir / f"{name}.npz")
+        store = GraphStore.load(resume_dir / f"{name}.npz")
+        sizes[name] = {"graphs": store.num_graphs, "nodes": int(store.node_offsets[-1]),
+                       "train": len(store.splits["train"]), "val": len(store.splits["val"])}
+    return sizes
+
+
+def tree_equal(a, b) -> bool:
+    """Bitwise equality of two restored msgpack trees."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    return type(a) is type(b) and a == b
+
+
+def leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in leaves(sub, f"{path}/{key}").items()}
+    return {path: tree}
+
+
+def resume_phase(device, resume_dir: Path, out_root: Path) -> None:
+    """Runs A (6 epochs), B (stopped after its epoch-5 resume file) and B'
+    (B resumed) of pretrain() s5 at full width on K1 and K2, and checks 1-5
+    of the module docstring's resume phase."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.pretrain import pretrain as pt
+    from gnn_pretraining_tpu_torch.pretrain.optimizers import create_task_specific_optimizer
+    from gnn_pretraining_tpu_torch.utils.checkpoint import load_checkpoint
+    from gnn_pretraining_tpu_torch.utils.convert import adamw_to_opt_state, model_variables
+    from gnn_pretraining_tpu_torch.utils.fidelity import cell_completed, fidelity_block
+
+    t0 = time.perf_counter()
+    stores = resume_stores(resume_dir)
+    cfg = config.PretrainConfig(RESUME_SCHEME, 42)
+    roots = {name: out_root / f"resume_{name}" for name in ("A", "B")}
+    run = dict(aggregation="pallas", epochs=RESUME_EPOCHS, processed_dir=resume_dir,
+               resume=True)
+    kernels = counters()
+
+    def log(name):
+        path = roots[name] / "metrics" / config.PRETRAIN_PROJECT_NAME / f"{cfg.run_name}.jsonl"
+        return [json.loads(line) for line in open(path)]
+
+    result_a = pt.pretrain(cfg, out_root=roots["A"], **run)
+    real_save = pt.save_train_state
+
+    def save_then_stop(*args, **kwargs):
+        real_save(*args, **kwargs)
+        raise Stopped
+
+    pt.save_train_state = save_then_stop
+    try:
+        pt.pretrain(cfg, out_root=roots["B"], **run)
+        raise AssertionError("run B was not stopped at its first resume file")
+    except Stopped:
+        pass
+    finally:
+        pt.save_train_state = real_save
+    rows_before = len(log("B"))
+
+    # Check 1: B's file onto a fresh model, optimizer and streams on the card.
+    path = roots["B"] / "pretrain" / f"resume_{cfg.run_name}.msgpack"
+    saved = load_checkpoint(path)
+    model = pt.build_pretrain_model(cfg, "pallas", device)
+    optimizer, labels, _ = create_task_specific_optimizer(model, cfg.active_tasks)
+    streams = pt.random_streams(cfg, model, device)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    counters_b = pt.load_resume_state(path, model, optimizer, cfg, streams)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t) * 1e3
+    variables = model_variables(model)
+    restored = {
+        "params": tree_equal(variables["params"], saved["params"]),
+        "batch_stats": tree_equal(variables["batch_stats"], saved["batch_stats"]),
+        "opt_state": tree_equal(adamw_to_opt_state(model, optimizer, labels,
+                                                   ["default", *cfg.active_tasks]),
+                                saved["opt_state"]),
+        "streams": tree_equal(pt.stream_states(streams), saved["extra"]["streams"]),
+        "counters": counters_b == saved["counters"],
+        "on_card": all(p.device.type == "cuda" and s["exp_avg"].device.type == "cuda"
+                       for p, s in optimizer.state.items())
+        and all(streams[k].generator.device.type == "cuda"
+                for k in ("dropout", "views", "task_draws"))}
+    state = pt.PretrainState(counters_b["opt_step"], counters_b["balancer_step"])
+    t = time.perf_counter()
+    pt.save_resume_state(out_root / "resume_save_timing.msgpack", model, optimizer, cfg, state,
+                         streams, counters_b["epoch"], counters_b["best_total"],
+                         counters_b["epochs_since_improvement"])
+    save_ms = (time.perf_counter() - t) * 1e3
+    del model, optimizer, streams
+
+    # B' in this process; its launches alone.
+    before = {name: c.launches for name, c in kernels.items()}
+    result_b = pt.pretrain(cfg, out_root=roots["B"], **run)
+    launched = {name: c.launches - before[name] for name, c in kernels.items()}
+
+    rows_a, rows_b = log("A"), log("B")[rows_before:]
+    steps = lambda rows: [r for r in rows if "train/loss/total" in r]  # noqa: E731
+    epoch6_a = [r for r in steps(rows_a) if r["train/progress/epoch"] == RESUME_EPOCHS]
+    epoch6_b = steps(rows_b)
+    steps_per_epoch = len(steps(rows_a)) // RESUME_EPOCHS
+    # Check 3: per train step phase 8's counts; the epoch's evaluation runs
+    # every (task, domain, val batch) forward once more, without backward.
+    k1, k2 = STEP_LAUNCHES[RESUME_SCHEME]
+    val_batches = sum(math.ceil(s["val"] / config.PRETRAIN_BATCH_SIZE) for s in stores.values())
+    forwards = sum(2 if t in ("node_contrast", "graph_contrast") else 1 for t in cfg.active_tasks)
+    contrast = sum(t in ("node_contrast", "graph_contrast") for t in cfg.active_tasks)
+    n = len(epoch6_b)
+    expected = {"gin_spmm_fwd": n * k1 + val_batches * forwards * config.GNN_NUM_LAYERS,
+                "gin_spmm_bwd": n * k1, "ntxent_fwd": n * k2 + val_batches * contrast,
+                "ntxent_bwd": n * k2, "csr_spmm_fwd": 0, "csr_spmm_bwd": 0}
+
+    # Check 4: B' against A.
+    loss_keys = ["train/loss/total", *(f"train/loss/{t}" for t in cfg.active_tasks)]
+    loss_err = max(abs(rb[k] - ra[k]) / abs(ra[k]) for ra, rb in zip(epoch6_a, epoch6_b)
+                   for k in loss_keys)
+    val_err = abs(rows_b[-1]["val/loss/total"] - rows_a[-1]["val/loss/total"]) / abs(
+        rows_a[-1]["val/loss/total"])
+    final = {name: load_checkpoint(roots[name] / "pretrain" / f"resume_{cfg.run_name}.msgpack")
+             for name in roots}
+    pa, pb = leaves(final["A"]["params"]), leaves(final["B"]["params"])
+    param_diff = max(float(np.abs(pb[k] - pa[k]).max()) for k in pa)
+    param_l2 = math.sqrt(sum(float(((pb[k] - pa[k]).astype(np.float64) ** 2).sum()) for k in pa)
+                         / sum(float((pa[k].astype(np.float64) ** 2).sum()) for k in pa))
+    budget = config.DEFAULT_LR * RESUME_EPOCHS * steps_per_epoch
+
+    # Check 5: the summary's fidelity block.
+    summary_path = (roots["B"] / "metrics" / config.PRETRAIN_PROJECT_NAME
+                    / f"{cfg.run_name}.summary.json")
+    summary = json.loads(summary_path.read_text())
+    completed = cell_completed(summary_path, fidelity_block(
+        RESUME_EPOCHS, cfg.seed, "pallas", resume_dir, cfg.pretrain_domains))
+
+    checks = {
+        "1_restored_bitwise": restored,
+        "2_starts_at_epoch_6": bool(rows_b[0]["_step"] == 5 * steps_per_epoch + 1
+                                    and {r["train/progress/epoch"] for r in epoch6_b}
+                                    == {RESUME_EPOCHS} and len(epoch6_b) == len(epoch6_a)
+                                    == steps_per_epoch and counters_b["epoch"] == 5
+                                    and result_b["epochs"] == result_a["epochs"] == RESUME_EPOCHS),
+        "3_launches": launched == expected,
+        "4_agrees_with_A": bool(loss_err <= RESUME_LOSS_TOL and val_err <= RESUME_LOSS_TOL
+                                and param_diff <= RESUME_PARAM_TOL * budget),
+        "5_fidelity": bool(summary.get("fidelity/completed") == 1 and completed),
+    }
+    ok = bool(all(restored.values()) and all(list(checks.values())[1:]))
+    emit({"phase": "resume", "scheme": cfg.run_name, "stores": stores,
+          "store_graphs": RESUME_STORE_GRAPHS, "steps_per_epoch": steps_per_epoch,
+          "epochs": RESUME_EPOCHS, "stopped_after_epoch": counters_b["epoch"],
+          "b_prime_first_step": rows_b[0]["_step"], "b_prime_steps": len(epoch6_b),
+          "a_epoch6_steps": len(epoch6_a), "launches": launched, "expected": expected,
+          "val_batches": val_batches, "epoch6_loss_max_rel_err": loss_err,
+          "epoch6_val_total_rel_err": val_err, "loss_tol": RESUME_LOSS_TOL,
+          "param_max_abs_diff": param_diff, "param_rel_l2_diff": param_l2,
+          "param_budget_lr_x_steps": budget, "param_tol_x_budget": RESUME_PARAM_TOL,
+          "best_val_total": {"A": result_a["best_val_total"], "B": result_b["best_val_total"]},
+          "fidelity": {k: v for k, v in summary.items() if k.startswith("fidelity/")},
+          "save_ms": save_ms, "load_ms": load_ms, "file_bytes": path.stat().st_size,
+          "seconds": time.perf_counter() - t0, "checks": checks, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the resume phase failed its checks: {checks}")
+
+
 def device_ms(fn) -> float:
     """Device time of one call: the median over TIMING_REPS calls of the
     CUDA-event time around it, each call queued behind a ~0.5 ms sleep
@@ -1756,13 +1970,17 @@ def main() -> int:
         csr_steps, csr = run_path(lambda: (
             train_phase(device, CSR_STORES, "csr"),
             entry_phase(CSR_STORES, out_root, CSR_ENTRY_CELLS, "csr"))[0][0])
+        resume_dir = Path(tmp) / "resume"
+        resume_dir.mkdir()
+        _, resume = run_path(lambda: clocked("resume", lambda: resume_phase(
+            device, resume_dir, out_root)))
     paths = {"serving": serving, "train": train, "pretrain": pretrain,
-             "pretrain_tasks": pretrain_tasks, "csr": csr}
+             "pretrain_tasks": pretrain_tasks, "csr": csr, "resume": resume}
     launches = {name: {path: counts[name] for path, counts in paths.items()}
                 for name in kernels}
     k3 = CELL_KERNELS["csr"]
     unlaunched = [name for name in kernels if name not in k3
-                  and min(pretrain[name], pretrain_tasks[name]) < 1]
+                  and min(pretrain[name], pretrain_tasks[name], resume[name]) < 1]
     unlaunched += [name for name in k3 if csr[name] < 1]
     if min(serving["gin_spmm_fwd"], train["gin_spmm_fwd"], train["gin_spmm_bwd"]) < 1 \
             or unlaunched:

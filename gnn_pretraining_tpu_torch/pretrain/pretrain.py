@@ -21,12 +21,23 @@ validation checkpoint ``pretrain/model_{exp}_{seed}.msgpack`` (which the
 JAX package's ``load_checkpoint`` and this package's ``finetune()`` read),
 and stops after ``epochs // 2`` epochs without improvement. With
 ``aggregation="pallas"`` every GIN layer runs K1 forward and backward, and
-every NT-Xent runs K2.
+every NT-Xent runs K2. The run summary ends with the ``fidelity/*`` block
+(``utils/fidelity.py``) that the sweep scripts' ``--resume`` reads.
+
+``resume=True`` (``--resume``) writes the train state to
+``pretrain/resume_{exp}_{seed}.msgpack`` every ``RESUME_EVERY`` epochs and at
+the last one (JAX pretrain.py:731-737), and, when that file exists, carries
+on from the epoch after it: weights, BN statistics, AdamW's moments and
+steps, the counters, and the state of every random stream (the sampler's
+numpy generator, dropout, views, PCGrad's order, masks and negatives), so
+the run goes on exactly as if it had never stopped. The JAX package
+restarts its numpy sampler from the seed on resume, and so draws epoch 1's
+batches again; this package does not. A JAX package's resume file loads
+too; it holds no stream states, so the streams start from their seeds.
 
 Every scheme of ``config.ALL_SCHEMES`` runs. Left for later: the chunked
-``lax.scan`` runner (its per-step semantics are these), ``--resume`` with the
-optimizer state, ``--data_parallel`` and the fidelity block of the run
-summary.
+``lax.scan`` runner (its per-step semantics are these), ``--data_parallel``
+and ``--debug_nans``.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ import argparse
 import dataclasses
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -51,6 +62,7 @@ from gnn_pretraining_tpu_torch.pretrain.balancer import balance_losses, np_balan
 from gnn_pretraining_tpu_torch.pretrain.optimizers import (
     clip_grads_torch,
     create_task_specific_optimizer,
+    param_labels,
 )
 from gnn_pretraining_tpu_torch.pretrain.pcgrad import apply_pcgrad
 from gnn_pretraining_tpu_torch.pretrain.schedulers import grl_lambda_at, temperature_at
@@ -59,13 +71,24 @@ from gnn_pretraining_tpu_torch.pretrain.tasks import (
     TaskDraws,
     compute_task_loss,
 )
-from gnn_pretraining_tpu_torch.utils.checkpoint import save_checkpoint
-from gnn_pretraining_tpu_torch.utils.convert import model_variables
+from gnn_pretraining_tpu_torch.utils.checkpoint import (
+    load_train_state,
+    save_checkpoint,
+    save_train_state,
+)
+from gnn_pretraining_tpu_torch.utils.convert import (
+    adamw_to_opt_state,
+    load_adamw_state,
+    load_variables,
+    model_variables,
+)
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
+from gnn_pretraining_tpu_torch.utils.fidelity import fidelity_block
 from gnn_pretraining_tpu_torch.utils.logging import MetricLogger
 from gnn_pretraining_tpu_torch.utils.profiling import ThroughputMeter
 
 FLUSH_EVERY = 8          # train steps between two fetches of their metrics
+RESUME_EVERY = 5         # epochs between two resume files (and the last one)
 
 
 @dataclasses.dataclass
@@ -84,6 +107,82 @@ def build_pretrain_model(cfg: config.PretrainConfig, aggregation: str,
                             device=device)
     model.seed_dropout(cfg.seed + 1)
     return model
+
+
+def random_streams(cfg: config.PretrainConfig, model: PretrainableGNN,
+                   device) -> Dict[str, Any]:
+    """Every random stream of a run, seeded from ``cfg.seed``: the sampler's
+    numpy generator (seed), the model's dropout (seed + 1, set by
+    ``build_pretrain_model``), the views (seed + 2), PCGrad's task order
+    (seed + 3, on the CPU) and the masks and negatives (seed + 4)."""
+    return {"sampler": np.random.default_rng(cfg.seed),
+            "dropout": model.dropout,
+            "views": ViewSource(device, seed=cfg.seed + 2),
+            "pcgrad": torch.Generator().manual_seed(cfg.seed + 3),
+            "task_draws": TaskDraws(device, seed=cfg.seed + 4)}
+
+
+def stream_states(streams: Dict[str, Any]) -> Dict[str, Any]:
+    """Each stream's state: a torch generator's bytes (uint8), the numpy
+    generator's ``bit_generator.state`` with its 128-bit words as decimal
+    strings (no msgpack int holds them)."""
+    out = {}
+    for name, stream in streams.items():
+        if isinstance(stream, np.random.Generator):
+            st = stream.bit_generator.state
+            out[name] = {**st, "state": {k: str(v) for k, v in st["state"].items()}}
+        else:
+            out[name] = getattr(stream, "generator", stream).get_state().numpy()
+    return out
+
+
+def restore_streams(streams: Dict[str, Any], states: Dict[str, Any]) -> None:
+    """The inverse of ``stream_states``, in place."""
+    if set(states) != set(streams):
+        raise ValueError(f"stream states {sorted(states)} do not match the run's "
+                         f"streams {sorted(streams)}")
+    for name, stream in streams.items():
+        st = states[name]
+        if isinstance(stream, np.random.Generator):
+            stream.bit_generator.state = {**st, "state": {k: int(v) for k, v
+                                                          in st["state"].items()}}
+        else:
+            getattr(stream, "generator", stream).set_state(
+                torch.from_numpy(np.asarray(st, np.uint8)))
+
+
+def save_resume_state(path, model: PretrainableGNN, optimizer, cfg: config.PretrainConfig,
+                      state: PretrainState, streams: Dict[str, Any], epoch: int,
+                      best_total: float, epochs_since_improvement: int) -> None:
+    """Write the run's train state after ``epoch`` (``utils.checkpoint.
+    save_train_state``; the stream states under ``extra``)."""
+    variables = model_variables(model)
+    opt_state = adamw_to_opt_state(model, optimizer, param_labels(model, cfg.active_tasks),
+                                   ["default", *cfg.active_tasks])
+    counters = {"opt_step": state.opt_step, "balancer_step": state.balancer_step,
+                "epoch": epoch, "best_total": best_total,
+                "epochs_since_improvement": epochs_since_improvement}
+    save_train_state(path, variables["params"], variables["batch_stats"], opt_state,
+                     counters, extra={"streams": stream_states(streams)})
+
+
+def load_resume_state(path, model: PretrainableGNN, optimizer, cfg: config.PretrainConfig,
+                      streams: Dict[str, Any]) -> Dict[str, Any]:
+    """Restore a train-state file onto ``model``, ``optimizer`` and
+    ``streams`` in place and return its counters. Raises, naming the key,
+    where the file does not fit the model. A file without stream states (the
+    JAX package's) leaves the streams at their seeds, and says so."""
+    payload = load_train_state(path)
+    load_variables(model, {"params": payload["params"],
+                           "batch_stats": payload["batch_stats"]})
+    load_adamw_state(payload["opt_state"], model, optimizer,
+                     param_labels(model, cfg.active_tasks), ["default", *cfg.active_tasks])
+    if "streams" in payload["extra"]:
+        restore_streams(streams, payload["extra"]["streams"])
+    else:
+        print(f"{path} holds no random-stream states (a JAX package file): "
+              "the streams start from their seeds", flush=True)
+    return payload["counters"]
 
 
 def _context(step: int, total_steps: int, views: ViewSource, draws: TaskDraws,
@@ -223,11 +322,14 @@ def run_evaluation(eval_fn, state: PretrainState, cfg, val_loaders, logger,
 
 def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
              epochs: int = config.PRETRAIN_EPOCHS, processed_dir=None,
-             use_wandb: bool = False, out_root=None, device=None) -> Dict[str, object]:
+             use_wandb: bool = False, resume: bool = False, out_root=None,
+             device=None) -> Dict[str, object]:
     """Pretrain one scheme and return ``{best_val_total, epochs, checkpoint}``.
 
-    Runs on the card unless ``device="cpu"``. Checkpoints go to
-    ``out_root/pretrain``, metrics to ``out_root/metrics``."""
+    Runs on the card unless ``device="cpu"``. Checkpoints (and, with
+    ``resume``, the resume file) go to ``out_root/pretrain``, metrics to
+    ``out_root/metrics``. A resume file written at the last epoch leaves
+    nothing to train: the summary is written and ``epochs`` is that epoch."""
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -236,27 +338,25 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
     out_root = Path(out_root or config.OUTPUT_DIR)
     (out_root / "pretrain").mkdir(parents=True, exist_ok=True)
     ckpt_path = out_root / "pretrain" / f"model_{cfg.run_name}.msgpack"
+    resume_path = out_root / "pretrain" / f"resume_{cfg.run_name}.msgpack"
     logger = MetricLogger(config.PRETRAIN_PROJECT_NAME, cfg.run_name,
                           out_dir=out_root / "metrics", use_wandb=use_wandb)
 
-    rng = np.random.default_rng(cfg.seed)
+    model = build_pretrain_model(cfg, aggregation, device)
+    optimizer, _, _ = create_task_specific_optimizer(model, cfg.active_tasks)
+    streams = random_streams(cfg, model, device)
     val_loaders = {d: [b.to(device) for b in
                        create_pretrain_val_loader(d, processed_dir=processed_dir)]
                    for d in cfg.pretrain_domains}
-    train_loader = create_pretrain_train_loader(cfg.pretrain_domains, rng,
+    train_loader = create_pretrain_train_loader(cfg.pretrain_domains, streams["sampler"],
                                                 processed_dir=processed_dir)
     steps_per_epoch = len(train_loader)
     total_steps = steps_per_epoch * epochs
 
-    model = build_pretrain_model(cfg, aggregation, device)
-    optimizer, _, _ = create_task_specific_optimizer(model, cfg.active_tasks)
-    views = ViewSource(device, seed=cfg.seed + 2)
-    pcgrad_generator = torch.Generator().manual_seed(cfg.seed + 3)
-    draws = TaskDraws(device, seed=cfg.seed + 4)
     state = PretrainState()
-    train_step = make_train_step(model, cfg, optimizer, total_steps, views,
-                                 pcgrad_generator, draws)
-    eval_fn = make_eval_fn(model, cfg, total_steps, views, draws)
+    train_step = make_train_step(model, cfg, optimizer, total_steps, streams["views"],
+                                 streams["pcgrad"], streams["task_draws"])
+    eval_fn = make_eval_fn(model, cfg, total_steps, streams["views"], streams["task_draws"])
 
     # Aggregations per step and domain: two views per contrastive task.
     forwards = sum(2 if t in ("node_contrast", "graph_contrast") else 1
@@ -282,8 +382,20 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
     best_total = float("inf")
     epochs_since_improvement = 0
     global_step = 0
-    epoch = 0
-    for epoch in range(1, epochs + 1):
+    start_epoch = 1
+    if resume and resume_path.exists():
+        counters = load_resume_state(resume_path, model, optimizer, cfg, streams)
+        state.opt_step, state.balancer_step = counters["opt_step"], counters["balancer_step"]
+        start_epoch = counters["epoch"] + 1
+        best_total = counters["best_total"]
+        epochs_since_improvement = counters["epochs_since_improvement"]
+        global_step = counters["opt_step"]
+        print(f"resumed {cfg.run_name} at epoch {start_epoch} "
+              f"(best_val={best_total:.4f})", flush=True)
+    first_step = global_step + 1
+
+    epoch = start_epoch - 1          # the loop is empty after a last-epoch resume
+    for epoch in range(start_epoch, epochs + 1):
         for host_batches in train_loader:
             global_step += 1
             edges = int(sum(float(b.edge_mask.sum()) for b in host_batches.values()))
@@ -291,7 +403,7 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
             pending.append((global_step, epoch, train_step(state, batches), edges))
             if len(pending) >= FLUSH_EVERY:
                 flush_pending()
-            if global_step == 1:
+            if global_step == first_step:
                 meter.reset()            # the first step's warm-up is not counted
         flush_pending()
 
@@ -307,10 +419,14 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
                             epoch, val_metrics)
         else:
             epochs_since_improvement += 1
+        if resume and (epoch % RESUME_EVERY == 0 or epoch == epochs):
+            save_resume_state(resume_path, model, optimizer, cfg, state, streams, epoch,
+                              best_total, epochs_since_improvement)
         if epochs_since_improvement >= int(epochs * config.PRETRAIN_PATIENCE_FRACTION):
             break
 
-    logger.finish()
+    logger.finish(extra=fidelity_block(epochs, cfg.seed, aggregation, processed_dir,
+                                       cfg.pretrain_domains))
     return {"best_val_total": best_total, "epochs": epoch, "checkpoint": str(ckpt_path)}
 
 
@@ -324,6 +440,9 @@ def main() -> None:
                         choices=["dense", "pallas", "coo"])
     parser.add_argument("--processed_dir", type=str, default=None)
     parser.add_argument("--out_root", type=str, default=None)
+    parser.add_argument("--resume", action="store_true",
+                        help="save the train state every 5 epochs and carry on "
+                             "from it when it exists")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda unless given (cpu runs the plain versions)")
     parser.add_argument("--wandb", action="store_true",
@@ -332,7 +451,7 @@ def main() -> None:
     cfg = config.PretrainConfig(exp_name=args.exp_name, seed=args.seed)
     print(pretrain(cfg, aggregation=args.aggregation, epochs=args.epochs,
                    processed_dir=args.processed_dir, use_wandb=args.wandb,
-                   out_root=args.out_root, device=args.device))
+                   resume=args.resume, out_root=args.out_root, device=args.device))
 
 
 if __name__ == "__main__":

@@ -12,7 +12,10 @@ types:
 
 Any other extension code raises, as does a byte that starts no known type.
 ``packb`` writes dicts with string keys, lists, str, bool, None, int, float
-(as float64), bytes, numpy arrays (ext 1) and numpy scalars (ext 3).
+(as float64), bytes, numpy arrays (ext 1, a 0-d array included, as flax
+writes a jax scalar such as optax's ``count``) and numpy scalars (ext 3). An
+int outside msgpack's 64-bit range raises: the caller writes it as a string
+(the train state does so for the 128-bit words of numpy's PCG64 state).
 """
 
 from __future__ import annotations
@@ -152,6 +155,8 @@ def _encode(obj: Any, out: bytearray) -> None:
     elif isinstance(obj, (bool, np.bool_)):
         out.append(0xC3 if obj else 0xC2)
     elif isinstance(obj, int):
+        if not -(1 << 63) <= obj < 1 << 64:
+            raise OverflowError(f"int {obj} is outside msgpack's 64-bit range")
         if 0 <= obj <= 0x7F:
             out.append(obj)
         elif -32 <= obj < 0:

@@ -116,23 +116,122 @@ def _flax_path(key: str):
     return "params", path, leaf
 
 
+def _to_flax(key: str, tensor: torch.Tensor):
+    """A state_dict entry -> (collection, flax path, leaf name, numpy array)."""
+    collection, path, leaf = _flax_path(key)
+    arr = tensor.detach().cpu().numpy()
+    if collection == "params":
+        if leaf == "weight":
+            leaf, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
+        elif leaf == "eps":
+            arr = arr.reshape(())
+    return collection, path, leaf, np.array(arr)   # a C-ordered copy; keeps rank 0
+
+
+def _put(tree: Dict[str, Any], path: List[str], leaf: str, value) -> None:
+    for name in path:
+        tree = tree.setdefault(name, {})
+    tree[leaf] = value
+
+
 def state_dict_to_variables(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """A port ``state_dict`` -> ``{"params": ..., "batch_stats": ...}`` of
     numpy leaves in the flax layout; inverse of ``variables_to_state_dict``."""
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     for key, tensor in state.items():
-        collection, path, leaf = _flax_path(key)
-        arr = tensor.detach().cpu().numpy()
-        if collection == "params":
-            if leaf == "weight":
-                leaf, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
-            elif leaf == "eps":
-                arr = arr.reshape(())
-        node = out[collection]
-        for name in path:
-            node = node.setdefault(name, {})
-        node[leaf] = np.array(arr)              # a C-ordered copy; keeps rank 0
+        collection, path, leaf, arr = _to_flax(key, tensor)
+        _put(out[collection], path, leaf, arr)
     return out
+
+
+# torch's AdamW keeps a ``step`` and two moments per parameter; optax keeps,
+# per label, what flax's ``to_state_dict`` writes of ``optax.multi_transform``
+# over ``optax.adamw`` (JAX ``pretrain/optimizers.py:36-46``):
+#
+#   inner_states/<label>/inner_state/"0"/{count, mu, nu}, "1": {}, "2": {}
+#
+# one label per transform (``default``, then each active task, whether or
+# not a parameter carries it); ``count`` a 0-d int32; ``mu`` and ``nu`` the
+# whole params tree in the flax layout with each leaf of another label
+# written as {} (optax's ``MaskedNode``); "1" and "2" the empty states of the
+# weight decay and the learning-rate scaling. Keys are sorted, as jax's tree
+# functions leave them.
+
+
+def _sorted_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def adamw_to_opt_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                       labels: Dict[str, str], label_order: List[str]) -> Dict[str, Any]:
+    """The optax state that matches ``optimizer``'s (``labels``: parameter
+    name -> label; ``label_order``: the transforms' labels in order). Every
+    parameter must have taken as many steps as every other (the train step
+    hands each one a gradient), or none."""
+    named = list(model.named_parameters())
+    states = [optimizer.state.get(p) for _, p in named]
+    steps = {int(s["step"]) for s in states if s}
+    if len(steps) > 1 or (steps and not all(states)):
+        raise ValueError(f"AdamW steps differ across parameters: {sorted(steps)}")
+    count = np.array(steps.pop() if steps else 0, np.int32)
+    moments = {}
+    for key in ("exp_avg", "exp_avg_sq"):
+        moments[key] = {name: (s[key] if s else torch.zeros_like(p))
+                        for (name, p), s in zip(named, states)}
+    inner = {}
+    for label in label_order:
+        adam = {"count": count, "mu": {}, "nu": {}}
+        for slot, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            for name, tensor in moments[key].items():
+                _, path, leaf, arr = _to_flax(name, tensor)
+                _put(adam[slot], path, leaf, arr if labels[name] == label else {})
+        inner[label] = {"inner_state": {"0": _sorted_tree(adam), "1": {}, "2": {}}}
+    return {"inner_states": inner}
+
+
+def load_adamw_state(opt_state: Dict[str, Any], model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer, labels: Dict[str, str],
+                     label_order: List[str]) -> None:
+    """Set ``optimizer``'s state from an optax state in the layout above
+    (``adamw_to_opt_state``'s, or the JAX package's). A count of 0 leaves a
+    parameter's state empty, as a fresh AdamW has it. Raises, naming the key,
+    on labels, parameters or shapes that do not match the model."""
+    inner_states = opt_state["inner_states"]
+    if set(inner_states) != set(label_order):
+        raise ValueError(f"opt_state labels {sorted(inner_states)} do not match the "
+                         f"optimizer's {sorted(label_order)}")
+    params = dict(model.named_parameters())
+    for label in label_order:
+        where = f"opt_state/inner_states/{label}/inner_state"
+        inner = inner_states[label]["inner_state"]
+        if set(inner) != {"0", "1", "2"} or inner["1"] or inner["2"]:
+            raise ValueError(f"{where}: expected adam's state and two empty states, "
+                             f"got keys {sorted(inner)}")
+        count = int(inner["0"]["count"])
+        members = {n for n in params if labels[n] == label}
+        moments = {}
+        for slot in ("mu", "nu"):
+            got = variables_to_state_dict({"params": inner["0"][slot]})
+            if set(got) != members:
+                raise ValueError(f"{where}/0/{slot}: missing {sorted(members - set(got))}, "
+                                 f"unexpected {sorted(set(got) - members)}")
+            for name, tensor in got.items():
+                if tensor.shape != params[name].shape:
+                    raise ValueError(f"{where}/0/{slot}: {name} has shape "
+                                     f"{tuple(tensor.shape)}, the model "
+                                     f"{tuple(params[name].shape)}")
+            moments[slot] = got
+        for name in sorted(members):
+            p = params[name]
+            if count == 0:
+                optimizer.state.pop(p, None)
+                continue
+            optimizer.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": moments["mu"][name].to(device=p.device, dtype=p.dtype),
+                "exp_avg_sq": moments["nu"][name].to(device=p.device, dtype=p.dtype)}
 
 
 def load_variables(model: torch.nn.Module, variables: Dict[str, Any]) -> torch.nn.Module:
