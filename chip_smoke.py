@@ -84,7 +84,24 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 order their atomics land), and its summary's fidelity block
                 is complete and accepted by cell_completed; save and load
                 milliseconds and the file's bytes;
- 12. timing  -- device-time medians (each call queued behind a sleep
+ 12. drivers -- the sweep drivers through main(argv) on a temporary
+                out_root, each cell's seconds and peak card memory:
+                (1) the s2 seed-42 pretrain shard (--num_shards 24
+                --shard_index 12), 1 epoch on the resume phase's stores,
+                launches K1 and K2 fwd and bwd and nothing else; (2) the
+                same shard on another out_root, a second cell in the same
+                process, peaks within DRIVER_PEAK_TOL of the first's card
+                memory; (3) the first command again with --resume launches
+                nothing and prints its skip line; (4) run_finetune ENZYMES
+                full_finetune b1, 4 epochs, launches K1 fwd and bwd only, and
+                its summary holds the fidelity block and both steady rates;
+                (5) the same cell from s2, whose pretrain ran 1 epoch, is
+                skipped by pretrain_ready with exit code 2 and no launch;
+                (6) Cora_NC full_finetune b1 --aggregation csr, 3 epochs on
+                the 6x store, launches K3 fwd and bwd and no K1; (7) the JAX
+                package's outputs/{pretrain,finetune,metrics} are unchanged
+                (listed by path);
+ 13. timing  -- device-time medians (each call queued behind a sleep
                 kernel, so the host's launch cost is left out; the time per
                 call beside it) of K1 fwd and bwd (split, and bf16), of the
                 three K2 kernels and of K3 fwd and bwd (Cora_NC 6x and the
@@ -96,7 +113,7 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 each train step, csr ones included, and of the K2 Function
                 against the plain NT-Xent formula (forward + backward) from
                 16 to 8192 rows;
- 13. profile -- each serving forward's and train step's device time by kernel
+ 14. profile -- each serving forward's and train step's device time by kernel
                 (torch.profiler) and the share of its time the card idles.
 
 The build phase prints every kernel's registers, shared memory and spills
@@ -224,6 +241,20 @@ RESUME_STORE_GRAPHS = 48
 # two runs may part by that much there (their relative L2 is printed beside).
 RESUME_LOSS_TOL = TRAIN_LOSS_TOL
 RESUME_PARAM_TOL = 1.0
+# The drivers phase: the sweep drivers' main(argv) on a temporary out_root.
+# The pretrain shard is s2 under seed 42 (grid index 12 of 24), 1 epoch over
+# the resume phase's stores. The dense fine-tune cell runs 4 epochs: its
+# patience is then 2, so at least 3 epochs run and the summary carries the
+# steady rates (from epoch 3 on). A second pretrain cell, the same shard on
+# another out_root, must peak within DRIVER_PEAK_TOL of the first's card
+# memory: a finished cell's tensors are freed before the next one starts.
+DRIVER_SHARD = ["--sweep", "--num_shards", "24", "--shard_index", "12", "--epochs", "1"]
+DRIVER_FT_EPOCHS = 4
+DRIVER_CSR_EPOCHS = 3
+DRIVER_PEAK_TOL = 0.10
+STEADY_KEYS = ("test/steady_steps_per_sec", "test/steady_edges_per_sec")
+# The JAX package's default output directories, which no port run may touch.
+JAX_OUTPUT_DIRS = ("pretrain", "finetune", "metrics")
 TIMING_REPS = 30
 WARMUP = 5
 SLEEP_CYCLES = 1_000_000            # device_ms: ~0.5 ms of card time per call
@@ -1398,6 +1429,104 @@ def resume_phase(device, resume_dir: Path, out_root: Path) -> None:
         raise AssertionError(f"the resume phase failed its checks: {checks}")
 
 
+def jax_outputs() -> dict:
+    """Every file under the JAX package's default output directories (by
+    path, without importing it), with its size and modification time."""
+    out = {}
+    for sub in JAX_OUTPUT_DIRS:
+        root = HERE / "outputs" / sub
+        out[sub] = sorted((str(p.relative_to(root)), p.stat().st_size, p.stat().st_mtime_ns)
+                          for p in root.rglob("*")) if root.exists() else None
+    return out
+
+
+def drivers_phase(processed_dir: Path, resume_dir: Path, out_root: Path) -> None:
+    """The sweep drivers through their main(argv), on the card: checks 1-7 of
+    the module docstring's drivers phase."""
+    import contextlib
+    import gc
+    import io
+
+    from gnn_pretraining_tpu_torch import config, run_finetune, run_pretrain
+    from gnn_pretraining_tpu_torch.utils.fidelity import fidelity_block
+
+    t0 = time.perf_counter()
+    before_outputs = jax_outputs()
+    # Earlier phases leave tensors in reference cycles; the drivers collect
+    # them after each cell, so collect them here too, or the first cell's
+    # peak would count them and the second's would not.
+    gc.collect()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    kernels = counters()
+    root = out_root / "drivers"
+    pretrain = [*DRIVER_SHARD, "--processed_dir", str(resume_dir)]
+
+    def finetune(domain, scheme, epochs, *extra):
+        return ["--domain_name", domain, "--finetune_strategy", "full_finetune",
+                "--pretrained_scheme", scheme, "--seed", "42", "--epochs", str(epochs),
+                "--out_root", str(root), *extra]
+
+    enzymes = ["--processed_dir", str(processed_dir)]
+    steps = (("pretrain s2_42", run_pretrain.main, [*pretrain, "--out_root", str(root)]),
+             ("pretrain s2_42, second cell", run_pretrain.main,
+              [*pretrain, "--out_root", str(out_root / "drivers_second")]),
+             ("pretrain s2_42 --resume", run_pretrain.main,
+              [*pretrain, "--out_root", str(root), "--resume"]),
+             ("finetune ENZYMES b1", run_finetune.main,
+              finetune("ENZYMES", "b1", DRIVER_FT_EPOCHS, *enzymes)),
+             ("finetune ENZYMES s2", run_finetune.main,
+              finetune("ENZYMES", "s2", DRIVER_FT_EPOCHS, *enzymes)),
+             ("finetune Cora_NC b1 csr", run_finetune.main,
+              finetune("Cora_NC", "b1", DRIVER_CSR_EPOCHS, "--aggregation", "csr",
+                       "--processed_dir", str(CSR_STORES))))
+    cells = {}
+    for name, main, argv in steps:
+        before = {k: c.launches for k, c in kernels.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        printed = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        cells[name] = {"rc": rc, "seconds": time.perf_counter() - t,
+                       "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                       "launches": {k: c.launches - before[k] for k, c in kernels.items()},
+                       "printed": printed.getvalue()}
+        print(printed.getvalue(), end="", flush=True)
+    launched = {name: {k for k, n in cell["launches"].items() if n} for name, cell in cells.items()}
+    summary = json.loads((root / "metrics" / config.FINETUNE_PROJECT_NAME
+                          / "ENZYMES_full_finetune_b1_42.summary.json").read_text())
+    first, second = (cells[f"pretrain s2_42{k}"]["peak_mib"] for k in ("", ", second cell"))
+    checks = {
+        "1_pretrain_k1_k2": launched["pretrain s2_42"] == {
+            "gin_spmm_fwd", "gin_spmm_bwd", "ntxent_fwd", "ntxent_bwd"},
+        "2_second_cell_peak": bool(abs(second - first) <= DRIVER_PEAK_TOL * first),
+        "3_resume_skips": not launched["pretrain s2_42 --resume"]
+        and "[1/1] s2_42: already complete, skipping" in cells["pretrain s2_42 --resume"]["printed"],
+        "4_dense_cell": launched["finetune ENZYMES b1"] == {"gin_spmm_fwd", "gin_spmm_bwd"}
+        and all(k in summary for k in STEADY_KEYS)
+        and {k: v for k, v in summary.items() if k.startswith("fidelity/")} == fidelity_block(
+            DRIVER_FT_EPOCHS, 42, "pallas", processed_dir, ("ENZYMES",)),
+        "5_pretrain_ready_skips": cells["finetune ENZYMES s2"]["rc"] == 2
+        and not launched["finetune ENZYMES s2"]
+        and "SKIPPED" in cells["finetune ENZYMES s2"]["printed"],
+        "6_csr_cell": launched["finetune Cora_NC b1 csr"] == {"csr_spmm_fwd", "csr_spmm_bwd"},
+        "7_jax_outputs_unchanged": jax_outputs() == before_outputs,
+        "exit_codes": [c["rc"] for c in cells.values()] == [0, 0, 0, 0, 2, 0],
+    }
+    ok = all(checks.values())
+    emit({"phase": "drivers",
+          "cells": {name: {k: c[k] for k in ("rc", "seconds", "peak_mib", "launches")}
+                    for name, c in cells.items()},
+          "base_mib": base_mib, "steady": {k: summary.get(k) for k in STEADY_KEYS},
+          "fidelity": {k: v for k, v in summary.items() if k.startswith("fidelity/")},
+          "jax_outputs": {k: None if v is None else len(v) for k, v in before_outputs.items()},
+          "seconds": time.perf_counter() - t0, "checks": checks, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the drivers phase failed its checks: {checks}")
+
+
 def device_ms(fn) -> float:
     """Device time of one call: the median over TIMING_REPS calls of the
     CUDA-event time around it, each call queued behind a ~0.5 ms sleep
@@ -1974,19 +2103,24 @@ def main() -> int:
         resume_dir.mkdir()
         _, resume = run_path(lambda: clocked("resume", lambda: resume_phase(
             device, resume_dir, out_root)))
+        _, drivers = run_path(lambda: clocked("drivers", lambda: drivers_phase(
+            processed_dir, resume_dir, out_root)))
     paths = {"serving": serving, "train": train, "pretrain": pretrain,
-             "pretrain_tasks": pretrain_tasks, "csr": csr, "resume": resume}
+             "pretrain_tasks": pretrain_tasks, "csr": csr, "resume": resume,
+             "drivers": drivers}
     launches = {name: {path: counts[name] for path, counts in paths.items()}
                 for name in kernels}
     k3 = CELL_KERNELS["csr"]
     unlaunched = [name for name in kernels if name not in k3
-                  and min(pretrain[name], pretrain_tasks[name], resume[name]) < 1]
-    unlaunched += [name for name in k3 if csr[name] < 1]
+                  and min(pretrain[name], pretrain_tasks[name], resume[name],
+                          drivers[name]) < 1]
+    unlaunched += [name for name in k3 if min(csr[name], drivers[name]) < 1]
     if min(serving["gin_spmm_fwd"], train["gin_spmm_fwd"], train["gin_spmm_bwd"]) < 1 \
             or unlaunched:
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    # The drivers path runs dense and csr cells; its phase checks each cell.
     strays = {name: [path for path, n in launches[name].items()
-                     if n and (path == "csr") != (name in k3)]
+                     if n and path != "drivers" and (path == "csr") != (name in k3)]
               for name in kernels if name in k3 or name in CELL_KERNELS["pallas"]}
     if any(strays.values()):
         raise AssertionError(f"K1 launched on the csr path or K3 off it: {strays}")

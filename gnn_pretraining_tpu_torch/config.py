@@ -231,7 +231,11 @@ REPO_ROOT = Path(__file__).resolve().parent.parent
 DATA_ROOT_DIR = REPO_ROOT / "data"
 RAW_DIR = DATA_ROOT_DIR / "raw"
 PROCESSED_DIR = DATA_ROOT_DIR / "processed"
-OUTPUT_DIR = REPO_ROOT / "outputs"
+# The port's runs go under a root of their own: the project and file names
+# equal the JAX package's, and both packages read each other's checkpoints,
+# train states and completion markers, so a shared root would let a port run
+# overwrite a JAX cell and pass its sweep's --resume check.
+OUTPUT_DIR = REPO_ROOT / "outputs" / "torch"
 PRETRAIN_OUTPUT_DIR = OUTPUT_DIR / "pretrain"
 FINETUNE_OUTPUT_DIR = OUTPUT_DIR / "finetune"
 METRICS_DIR = OUTPUT_DIR / "metrics"

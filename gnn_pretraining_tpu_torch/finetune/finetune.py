@@ -28,8 +28,13 @@ the dense limit) the graph is RCM-reordered once, its block-CSR tiles are
 built on the host (``finetune.runners.csr_graph_aux``), every node index of
 the splits is remapped, and every GIN layer runs kernel K3 instead.
 
-Left for later: the scan-fused runner's best-epoch replay, the fidelity
-block of the run summary and the multi-device modes.
+The run summary ends with the ``fidelity/*`` block (``utils.fidelity``)
+that a sweep's ``--resume`` checks, and its test row carries the steady
+rates ``test/steady_steps_per_sec`` / ``test/steady_edges_per_sec`` (from
+the third epoch on; see ``STEADY_FROM_EPOCH``). Not ported: the JAX
+package's scan-fused runner (its chunked epochs and best-epoch replay cut
+TPU dispatches; this loop saves the best state at each improvement instead)
+and the multi-device modes.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from gnn_pretraining_tpu_torch.utils.convert import (
     variables_to_state_dict,
 )
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
+from gnn_pretraining_tpu_torch.utils.fidelity import fidelity_block
 from gnn_pretraining_tpu_torch.utils.logging import MetricLogger
 from gnn_pretraining_tpu_torch.utils.losses import (
     bce_with_logits,
@@ -76,6 +82,10 @@ from gnn_pretraining_tpu_torch.utils.losses import (
 
 GROUP_LRS = {"encoder": config.LR_FINETUNE, "backbone": config.LR_BACKBONE,
              "head": config.LR_FINETUNE}
+# The steady rates count the epochs from this one on, leaving out the
+# one-off costs of the first (the kernels' build, the first launch at each
+# shape), as the JAX fused runner leaves out its first two dispatches.
+STEADY_FROM_EPOCH = 3
 
 
 # ---------------------------------------------------------------------------
@@ -475,8 +485,10 @@ def finetune(cfg: config.FinetuneConfig, aggregation: str = "pallas",
     sel_key = "val/auc" if cfg.task_type == "link_prediction" else "val/accuracy"
 
     epoch = 0
+    steady_wall, steady_steps = 0.0, 0
     t_loop = time.time()
     for epoch in range(1, epochs + 1):
+        t_epoch, epoch_start_step = time.time(), global_step
         for valid, args in train_batches():
             step_start = time.time()
             global_step += 1
@@ -492,6 +504,11 @@ def finetune(cfg: config.FinetuneConfig, aggregation: str = "pallas",
         val_bm, val_gauc = run_eval_pass("val")
         val_metrics = M.compute_validation_metrics(val_bm, epoch)
         val_metrics.update(val_gauc)
+        # Every step's and every eval batch's outputs were fetched to the host
+        # above, so the card is done with this epoch: no synchronize needed.
+        if epoch >= STEADY_FROM_EPOCH:
+            steady_wall += time.time() - t_epoch
+            steady_steps += global_step - epoch_start_step
         logger.log(val_metrics, step=global_step)
 
         if val_metrics[sel_key] > best_val:
@@ -513,8 +530,16 @@ def finetune(cfg: config.FinetuneConfig, aggregation: str = "pallas",
         total_params, trainable_params, train_steps=global_step,
         train_wall=loop_wall, edges_per_step=edges_per_step)
     test_metrics.update(test_gauc)
+    if steady_steps:
+        # Wall per train step of an epoch (its steps and its validation pass,
+        # what one fused dispatch covers in the JAX package) from
+        # STEADY_FROM_EPOCH on.
+        steady = steady_wall / steady_steps
+        test_metrics["test/steady_steps_per_sec"] = 1.0 / max(steady, 1e-9)
+        test_metrics["test/steady_edges_per_sec"] = edges_per_step / max(steady, 1e-9)
     logger.log(test_metrics, step=global_step)
-    logger.finish()
+    logger.finish(extra=fidelity_block(epochs, cfg.seed, aggregation, processed_dir,
+                                       (cfg.domain_name,)))
     return test_metrics
 
 

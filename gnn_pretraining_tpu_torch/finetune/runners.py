@@ -2,8 +2,10 @@
 
 Port of ``_csr_graph_aux`` in ``gnn_pretraining_tpu/finetune/runners.py``.
 The scan-fused runner of that module (whole epochs per device dispatch, the
-best-epoch replay) is not ported: the port's ``finetune()`` runs its
-per-step loop (ROADMAP queue 1 item 6).
+best-epoch replay) is not ported: it exists to cut TPU dispatches. The
+port's ``finetune()`` runs its per-step loop, saves the best state at each
+improvement, and writes the fused runner's summary keys (the ``fidelity/*``
+block and the steady rates).
 """
 
 from __future__ import annotations

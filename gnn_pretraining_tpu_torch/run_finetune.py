@@ -1,0 +1,143 @@
+"""Fine-tuning sweep driver of the port.
+
+    python -m gnn_pretraining_tpu_torch.run_finetune --sweep [--resume]
+    python -m gnn_pretraining_tpu_torch.run_finetune --domain_sweep Cora_NC
+    python -m gnn_pretraining_tpu_torch.run_finetune --domain_name ENZYMES \\
+        --finetune_strategy full_finetune --pretrained_scheme b1 --seed 42
+
+The counterpart of the JAX package's ``run_finetune.py``, with the same
+flags. ``--sweep`` runs the 324-cell grid (domain x strategy x scheme x
+seed, in the JAX package's order) in one process, ``--domain_sweep D`` the
+cells of one domain, and the cell flags one cell; the shard flags are
+``run_pretrain``'s. In every mode ``--resume`` skips a cell whose summary
+carries a completed ``fidelity/*`` block matching the run asked for, and a
+cell from a pretrained scheme is skipped unless that scheme's pretrain
+summary is complete at ``config.PRETRAIN_EPOCHS`` (``pretrain_ready``): a
+checkpoint is written at every new best epoch, so one exists even when the
+pretrain run died part-way. A cell that raises is printed with its traceback
+and the sweep goes on; ``main`` returns 2 when any cell failed or was
+skipped by ``pretrain_ready``.
+
+Runs on the card unless ``--device cpu``, resolved once before the grid;
+writes under ``config.OUTPUT_DIR`` (``outputs/torch/``) unless
+``--out_root``. Not ported: ``--isolate``, the chip lock and pause hooks,
+``--dp`` and ``--partition``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import sys
+import time
+import traceback
+from typing import List, Tuple
+
+import torch
+
+from gnn_pretraining_tpu_torch import config
+from gnn_pretraining_tpu_torch.finetune.finetune import finetune
+from gnn_pretraining_tpu_torch.run_pretrain import add_common_args, metrics_root, shard_grid
+from gnn_pretraining_tpu_torch.utils.device import resolve_device
+from gnn_pretraining_tpu_torch.utils.fidelity import cell_completed as summary_completed
+from gnn_pretraining_tpu_torch.utils.fidelity import fidelity_block
+
+
+def cell_completed(cfg: config.FinetuneConfig, args) -> bool:
+    """As ``run_pretrain.cell_completed``, for a fine-tune cell."""
+    path = metrics_root(args) / config.FINETUNE_PROJECT_NAME / f"{cfg.run_name}.summary.json"
+    return summary_completed(path, fidelity_block(
+        args.epochs or cfg.epochs, cfg.seed, args.aggregation, args.processed_dir,
+        (cfg.domain_name,)))
+
+
+def pretrain_ready(scheme: str, seed: int, args) -> bool:
+    """A fine-tune cell may start from ``scheme``'s checkpoint only when that
+    pretrain summary is complete at ``config.PRETRAIN_EPOCHS``, whatever
+    ``--epochs`` the fine-tune asks for. ``b1`` trains from scratch."""
+    if scheme == "b1":
+        return True
+    pcfg = config.PretrainConfig(exp_name=scheme, seed=seed)
+    path = metrics_root(args) / config.PRETRAIN_PROJECT_NAME / f"{pcfg.run_name}.summary.json"
+    return summary_completed(path, fidelity_block(
+        config.PRETRAIN_EPOCHS, seed, args.aggregation, args.processed_dir,
+        pcfg.pretrain_domains))
+
+
+def full_grid() -> List[Tuple[str, str, str, int]]:
+    return [(d, st, sc, seed)
+            for d in config.FINETUNE_DOMAINS
+            for st in config.FINETUNE_STRATEGIES
+            for sc in config.FINETUNE_SCHEMES
+            for seed in config.SEEDS]
+
+
+def run_grid(grid, args, device: torch.device) -> list:
+    """Fine-tune the cells of ``grid`` in order; returns the ones that failed
+    or were skipped for want of a complete pretrain."""
+    print(f"Fine-tuning sweep: {len(grid)} runs (shard {args.shard_index}/{args.num_shards})",
+          flush=True)
+    failed = []
+    for i, (domain, strategy, scheme, seed) in enumerate(grid):
+        cfg = config.FinetuneConfig(domain_name=domain, finetune_strategy=strategy,
+                                    pretrained_scheme=scheme, seed=seed)
+        tag = f"[{i + 1}/{len(grid)}] {cfg.run_name}"
+        if args.resume and cell_completed(cfg, args):
+            print(f"{tag}: already complete, skipping", flush=True)
+            continue
+        if not pretrain_ready(scheme, seed, args):
+            failed.append(cfg.run_name)
+            print(f"{tag}: SKIPPED — pretrain {scheme}_{seed} has no completed-fidelity "
+                  "marker", flush=True)
+            continue
+        print(f"{tag}: starting", flush=True)
+        t0 = time.time()
+        try:
+            res = finetune(cfg, aggregation=args.aggregation, processed_dir=args.processed_dir,
+                           epochs=args.epochs, out_root=args.out_root, device=device,
+                           use_wandb=args.wandb)
+            key = "test/auc" if cfg.task_type == "link_prediction" else "test/accuracy"
+            print(f"{tag}: {key}={res[key]:.4f} ({time.time() - t0:.0f}s)", flush=True)
+        except Exception:
+            traceback.print_exc()
+            failed.append(cfg.run_name)
+            print(f"{tag}: FAILED", flush=True)
+        # As in run_pretrain.run_sweep: free the finished cell before the next.
+        gc.collect()
+    print(f"\n{len(failed)} failed runs: {failed}" if failed else "\nAll runs completed.",
+          flush=True)
+    return failed
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_common_args(parser)
+    parser.add_argument("--domain_sweep", type=str, default=None,
+                        choices=config.FINETUNE_DOMAINS)
+    parser.add_argument("--domain_name", type=str, default=None,
+                        choices=config.FINETUNE_DOMAINS)
+    parser.add_argument("--finetune_strategy", type=str, default=None,
+                        choices=config.FINETUNE_STRATEGIES)
+    parser.add_argument("--pretrained_scheme", type=str, default=None,
+                        choices=config.FINETUNE_SCHEMES)
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--aggregation", type=str, default="pallas",
+                        choices=["dense", "pallas", "coo", "csr"])
+    args = parser.parse_args(argv)
+    if args.sweep:
+        grid = full_grid()
+    elif args.domain_sweep:
+        grid = [c for c in full_grid() if c[0] == args.domain_sweep]
+    elif not all((args.domain_name, args.finetune_strategy, args.pretrained_scheme)) \
+            or args.seed is None:
+        parser.error("provide --sweep, --domain_sweep, or all of --domain_name "
+                     "--finetune_strategy --pretrained_scheme --seed")
+    else:
+        grid = [(args.domain_name, args.finetune_strategy, args.pretrained_scheme, args.seed)]
+    grid = shard_grid(grid, args)
+    device = resolve_device(args.device)
+    return 2 if run_grid(grid, args, device) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -30,11 +30,17 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 CONSTANTS = sorted(n for n in dir(jax_config) if n.isupper())
 FORBIDDEN = ("jax", "flax", "msgpack", "gnn_pretraining_tpu")
-# The port's own dispatch values: the JAX package's are TPU crossovers. The
+# The port's own values. Dispatch: the JAX package's are TPU crossovers; the
 # fused NT-Xent (K2) takes every single-device NT-Xent on the card until it is
 # redesigned for the H100; its crossover against the plain formula is measured
-# by chip_smoke.py and recorded in PERF.md.
-PORT_DISPATCH = {"FUSED_NTXENT_MIN_ROWS": 0}
+# by chip_smoke.py and recorded in PERF.md. Paths: the port writes its
+# checkpoints, train states and summaries under a root of its own, beside the
+# JAX package's, with the same project and file names below it.
+PORT_OWN = {"FUSED_NTXENT_MIN_ROWS": 0,
+            "OUTPUT_DIR": jax_config.OUTPUT_DIR / "torch",
+            "PRETRAIN_OUTPUT_DIR": jax_config.OUTPUT_DIR / "torch" / "pretrain",
+            "FINETUNE_OUTPUT_DIR": jax_config.OUTPUT_DIR / "torch" / "finetune",
+            "METRICS_DIR": jax_config.OUTPUT_DIR / "torch" / "metrics"}
 
 
 def _forbidden(module: str) -> bool:
@@ -43,9 +49,9 @@ def _forbidden(module: str) -> bool:
 
 def test_constants_equal_jax():
     assert sorted(n for n in dir(torch_config) if n.isupper()) == CONSTANTS
-    assert set(PORT_DISPATCH) <= set(CONSTANTS)
+    assert set(PORT_OWN) <= set(CONSTANTS)
     for name in CONSTANTS:
-        want = PORT_DISPATCH.get(name, getattr(jax_config, name))
+        want = PORT_OWN.get(name, getattr(jax_config, name))
         assert getattr(torch_config, name) == want, name
 
 
@@ -61,7 +67,9 @@ def test_port_modules_import_no_jax():
         m.name for m in pkgutil.walk_packages(
             gnn_pretraining_tpu_torch.__path__, "gnn_pretraining_tpu_torch.")]
     assert {"gnn_pretraining_tpu_torch.ops._build", "gnn_pretraining_tpu_torch.ops.spmm_csr",
-            "gnn_pretraining_tpu_torch.finetune.runners"} <= set(modules)
+            "gnn_pretraining_tpu_torch.finetune.runners",
+            "gnn_pretraining_tpu_torch.run_pretrain",
+            "gnn_pretraining_tpu_torch.run_finetune"} <= set(modules)
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))")

@@ -16,12 +16,15 @@ version and the JAX kernel runs in interpret mode:
     width, dropout 0, ReLU branches of the JAX model replayed, the JAX step
     with jit off, the JAX side's mined negatives handed to the port);
   * ``finetune(aggregation="csr", device="cpu")`` trains Cora_NC and
-    Cora_LP to metrics in [0, 1], lands within 0.15 test accuracy of the
-    coo run of the same cell (tests/test_csr_finetune.py:85), and refuses a
-    graph-classification domain before any work.
+    Cora_LP to metrics in [0, 1], ends its summary with the JAX package's
+    ``fidelity/*`` block for the same arguments, lands within 0.15 test
+    accuracy of the coo run of the same cell (tests/test_csr_finetune.py:85),
+    and refuses a graph-classification domain before any work.
 """
 
 from __future__ import annotations
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +39,7 @@ from gnn_pretraining_tpu.finetune import finetune as jax_ft
 from gnn_pretraining_tpu.finetune import mining as jax_mining
 from gnn_pretraining_tpu.finetune import runners as jax_runners
 from gnn_pretraining_tpu.models.finetune_model import FinetuneGNN as JaxFinetuneGNN
+from gnn_pretraining_tpu.utils.fidelity import fidelity_block as jax_fidelity_block
 from gnn_pretraining_tpu_torch import FinetuneGNN, config
 from gnn_pretraining_tpu_torch.data import loaders
 from gnn_pretraining_tpu_torch.finetune import finetune as ft
@@ -225,14 +229,36 @@ def test_first_train_step_matches_jax(step_case):
         np.testing.assert_allclose(c["port_stats"][k], want, rtol=1e-4, atol=1e-6, err_msg=k)
 
 
+_CSR_RUNS = {}
+
+
+def csr_run(domain, epochs, processed_dir, tmp_path_factory):
+    """``finetune(aggregation="csr")`` of ``domain`` from scratch, once per
+    process: (config, result, out_root)."""
+    if domain not in _CSR_RUNS:
+        cfg = config.FinetuneConfig(domain, "full_finetune", "b1", 42)
+        out = tmp_path_factory.mktemp(f"csr_{domain}")
+        res = ft.finetune(cfg, aggregation="csr", processed_dir=processed_dir, epochs=epochs,
+                          out_root=out, device="cpu")
+        _CSR_RUNS[domain] = cfg, res, out
+    return _CSR_RUNS[domain]
+
+
 @pytest.mark.parametrize("domain,epochs", [("Cora_NC", 3), ("Cora_LP", 2)])
-def test_csr_trains_through_finetune(processed_dir, tmp_path, domain, epochs):
-    cfg = config.FinetuneConfig(domain, "full_finetune", "b1", 42)
-    res = ft.finetune(cfg, aggregation="csr", processed_dir=processed_dir, epochs=epochs,
-                      out_root=tmp_path, device="cpu")
+def test_csr_trains_through_finetune(processed_dir, tmp_path_factory, domain, epochs):
+    _, res, _ = csr_run(domain, epochs, processed_dir, tmp_path_factory)
     metric = "test/auc" if domain.endswith("LP") else "test/accuracy"
     assert 0.0 <= res[metric] <= 1.0
     assert np.isfinite(res["test/loss"]) and res["test/steps_per_sec"] > 0
+
+
+@pytest.mark.parametrize("domain,epochs", [("Cora_NC", 3), ("Cora_LP", 2)])
+def test_csr_summary_fidelity_block_equals_jax(processed_dir, tmp_path_factory, domain, epochs):
+    cfg, _, out = csr_run(domain, epochs, processed_dir, tmp_path_factory)
+    summary = json.loads((out / "metrics" / config.FINETUNE_PROJECT_NAME
+                          / f"{cfg.run_name}.summary.json").read_text())
+    assert {k: v for k, v in summary.items() if k.startswith("fidelity/")} == \
+        jax_fidelity_block(epochs, 42, "csr", processed_dir, (domain,))
 
 
 def test_csr_close_to_coo_test_accuracy(processed_dir, tmp_path):

@@ -1,19 +1,30 @@
 """The fine-tune slice as a whole: the port's ``finetune()`` beside the JAX one.
 
-Both packages fine-tune the same tiny seeded stores on the CPU for three
-epochs (the JAX side on its per-step path, ``fused=False``): one GC, one NC
-and one LP domain from scratch, plus ENZYMES ``linear_probe`` from the tracked
-b2 transfer artifact. The two runs draw different random numbers (init,
-dropout), so metric *values* are not compared; held equal are the metric key
-sets of every logged row and of the result, the parameter counts, and the
-checkpoint format: the best checkpoint the port wrote must load with the JAX
-package's ``load_checkpoint`` and give the port's eval logits in the JAX model
-at rtol=1e-4, atol=1e-5 (tests/test_model_parity.py:213-216).
+Both packages fine-tune the same tiny seeded stores on the CPU for four
+epochs: one GC, one NC and one LP domain from scratch, plus ENZYMES
+``linear_probe`` from the tracked b2 transfer artifact. The JAX side runs
+that last cell on its default runner (``fused=True``, one epoch per
+dispatch) and the others on its per-step path (``fused=False``, quicker to
+compile here). With four epochs the patience is 2, so at least three epochs
+run, and the port and the fused runner both write the steady rates (the port
+from its third epoch, the fused runner from its third dispatch); the
+per-step path writes none. The two runs draw different random numbers (init, dropout), so
+metric *values* are not compared; held equal are the metric key sets of every
+logged row and of the result, the parameter counts, the summary's
+``fidelity/*`` block, the columns ``analysis/data_collection.py`` reads from
+the summaries, and the checkpoint format: the best checkpoint the port wrote
+must load with the JAX package's ``load_checkpoint`` and give the port's eval
+logits in the JAX model at rtol=1e-4, atol=1e-5
+(tests/test_model_parity.py:213-216). A second port run of a cell gives the
+same metrics at rtol 1e-6, times and rates aside
+(tests/test_fused_finetune.py:35-42).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +36,7 @@ from gnn_pretraining_tpu.finetune.finetune import finetune as jax_finetune
 from gnn_pretraining_tpu.models.finetune_model import FinetuneGNN as JaxFinetuneGNN
 from gnn_pretraining_tpu.ops.spmm import build_dense_adjacency as jax_adjacency
 from gnn_pretraining_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
+from gnn_pretraining_tpu.utils.fidelity import fidelity_block as jax_fidelity_block
 from gnn_pretraining_tpu_torch import config
 from gnn_pretraining_tpu_torch.data import loaders
 from gnn_pretraining_tpu_torch.data.synthetic import (
@@ -40,10 +52,13 @@ from gnn_pretraining_tpu_torch.utils.convert import load_variables
 # spinning and starves the other workers.
 torch.set_num_threads(1)
 
-EPOCHS = 3
+EPOCHS = 4
+STEADY = {"test/steady_steps_per_sec", "test/steady_edges_per_sec"}
 CELLS = [("PTC_MR", "full_finetune", "b1"), ("Cora_NC", "full_finetune", "b1"),
          ("CiteSeer_LP", "full_finetune", "b1"), ("ENZYMES", "linear_probe", "b2")]
+FUSED_CELL = CELLS[3]                  # the JAX side's fused runner: one GC cell
 RTOL, ATOL = 1e-4, 1e-5
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope="module")
@@ -84,10 +99,11 @@ def get_run(cell, processed_dir, tmp_path_factory):
         jcfg = jax_config.FinetuneConfig(domain, strategy, scheme, 42)
         result = ft.finetune(cfg, aggregation="pallas", processed_dir=processed_dir,
                              epochs=EPOCHS, out_root=out["port"], device="cpu")
+        fused = cell == FUSED_CELL
         jresult = jax_finetune(jcfg, aggregation="pallas", processed_dir=processed_dir,
                                use_wandb=False, epochs=EPOCHS, out_root=out["jax"],
-                               fused=False)
-        _RUNS[cell] = dict(cfg=cfg, result=result, jresult=jresult, out=out,
+                               fused=fused, chunk_epochs=1)
+        _RUNS[cell] = dict(cfg=cfg, result=result, jresult=jresult, out=out, fused=fused,
                            logged=rows(out["port"], cfg), jlogged=rows(out["jax"], jcfg))
     return _RUNS[cell]
 
@@ -111,8 +127,12 @@ def probe_run(processed_dir, tmp_path_factory):
 
 
 def test_metric_keys_and_parameter_counts_equal_jax(run):
-    assert run["result"].keys() == run["jresult"].keys()
-    assert key_sets(run["logged"]) == key_sets(run["jlogged"])
+    assert STEADY <= run["result"].keys()
+    assert (STEADY <= run["jresult"].keys()) == run["fused"]
+    assert run["result"].keys() == run["jresult"].keys() | STEADY
+    want = key_sets(run["jlogged"])
+    want["test"] |= STEADY
+    assert key_sets(run["logged"]) == want
     for key in ("test/total_parameters", "test/trainable_parameters"):
         assert run["result"][key] == run["jresult"][key]
     # One row per train step, then one val row per epoch at that epoch's last
@@ -132,7 +152,7 @@ def test_selection_patience_and_best_reload(run):
     cfg, result = run["cfg"], run["result"]
     sel = "val/auc" if cfg.task_type == "link_prediction" else "val/accuracy"
     vals = [r[sel] for r in run["logged"] if sel in r]
-    patience = int(EPOCHS * config.FINETUNE_PATIENCE_FRACTION)        # 1
+    patience = int(EPOCHS * config.FINETUNE_PATIENCE_FRACTION)        # 2
     best, since, expect_epochs = -np.inf, 0, 0
     for epoch, v in enumerate(vals, 1):
         best, since = (v, 0) if v > best else (best, since + 1)
@@ -193,3 +213,57 @@ def test_linear_probe_trains_the_head_only(probe_run):
         if frozen and name.endswith("running_mean"):
             assert not torch.equal(best[name], value), name       # BN stats still moved
     assert run["result"]["test/trainable_parameters"] == 256 * 128 + 128 + 128 * 6 + 6
+
+
+def summary(out_root, cfg):
+    return json.loads((out_root / "metrics" / config.FINETUNE_PROJECT_NAME
+                       / f"{cfg.run_name}.summary.json").read_text())
+
+
+def test_summary_fidelity_block_equals_jax(run, processed_dir):
+    cfg = run["cfg"]
+    want = jax_fidelity_block(EPOCHS, cfg.seed, "pallas", processed_dir, (cfg.domain_name,))
+    for side in ("port", "jax"):
+        got = {k: v for k, v in summary(run["out"][side], cfg).items()
+               if k.startswith("fidelity/")}
+        assert got == want, side
+
+
+def test_dense_summary_fidelity_block_equals_jax(processed_dir, tmp_path):
+    """The block names the aggregation that ran: here the plain dense one."""
+    cfg = config.FinetuneConfig("PTC_MR", "full_finetune", "b1", 42)
+    ft.finetune(cfg, aggregation="dense", processed_dir=processed_dir, epochs=1,
+                out_root=tmp_path, device="cpu")
+    got = {k: v for k, v in summary(tmp_path, cfg).items() if k.startswith("fidelity/")}
+    assert got == jax_fidelity_block(1, 42, "dense", processed_dir, ("PTC_MR",))
+
+
+def test_a_second_run_gives_the_same_metrics(run, processed_dir, tmp_path):
+    cfg = run["cfg"]
+    again = ft.finetune(cfg, aggregation="pallas", processed_dir=processed_dir,
+                        epochs=EPOCHS, out_root=tmp_path, device="cpu")
+    assert again.keys() == run["result"].keys()
+    for k, v in run["result"].items():
+        if "time" not in k and "_per_sec" not in k:
+            np.testing.assert_allclose(again[k], v, rtol=1e-6, err_msg=k)
+
+
+def test_data_collection_reads_port_cells_as_jax_cells(run):
+    """``analysis/data_collection.extract_all_finetune_results`` over each
+    package's metrics directory: one row for the cell, the same columns, the
+    steady rates among them (which the JAX per-step path does not write)."""
+    spec = importlib.util.spec_from_file_location(
+        "data_collection", REPO / "analysis" / "data_collection.py")
+    collection = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(collection)
+    frames = {side: collection.extract_all_finetune_results(
+        metrics_dir=run["out"][side] / "metrics" / config.FINETUNE_PROJECT_NAME)
+        for side in ("port", "jax")}
+    assert len(frames["port"]) == len(frames["jax"]) == 1
+    steady = {"steady_steps_per_sec", "steady_edges_per_sec"}
+    assert steady <= set(frames["port"].columns)
+    assert (steady <= set(frames["jax"].columns)) == run["fused"]
+    assert set(frames["port"].columns) == set(frames["jax"].columns) | steady
+    row = frames["port"].iloc[0]
+    assert (row["domain"], row["strategy"], row["scheme"], row["seed"]) == (
+        run["cfg"].domain_name, run["cfg"].finetune_strategy, run["cfg"].pretrained_scheme, 42)

@@ -48,9 +48,10 @@ def jax_params(domain):
                   edge_mask=jnp.ones(4))
         if jax_config.TASK_TYPES[domain] == "graph_classification":
             kw.update(node_graph=jnp.zeros(6, jnp.int32), num_graphs=2)
-        variables = model.init(
+        init = jax.jit(lambda rngs, x, mask: model.init(rngs, x, mask, True, **kw))
+        variables = init(
             {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
-            jnp.ones((6, d)), jnp.ones(6), True, **kw)
+            jnp.ones((6, d)), jnp.ones(6))
         _PARAMS[domain] = jax.device_get(dict(variables))
     return _PARAMS[domain]
 
@@ -77,13 +78,18 @@ def test_adamw_groups_equal_optax_multi_transform(domain, strategy):
 
     rng = np.random.default_rng(1)
     state = optimizer.init(params)
+
+    @jax.jit
+    def update(grads, state, params):
+        updates, state = optimizer.update(grads, state, params)
+        return optax.apply_updates(params, updates), state
+
     for _ in range(3):
         # Gradients of mixed size, some tiny: AdamW's lr*g/(|g|+1e-8) regime.
         grads = jax.tree.map(
             lambda p: (rng.normal(size=np.shape(p)) * 10.0 ** rng.integers(-9, 1))
             .astype(np.float32), params)
-        updates, state = optimizer.update(grads, state, params)
-        params = optax.apply_updates(params, updates)
+        params, state = update(grads, state, params)
         tgrads = variables_to_state_dict({"params": grads})
         for name, p in model.named_parameters():
             p.grad = None if name in frozen else tgrads[name].clone()

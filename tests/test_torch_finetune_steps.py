@@ -434,7 +434,7 @@ def test_train_mode_forward_and_gradients_with_the_jax_dropout_draws(processed_d
                 node_graph=jb.node_graph, num_graphs=jb.num_graphs)
             return jnp.sum(logits * weights), (logits, mut)
 
-        (_, (jlogits, mut)), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
+        (_, (jlogits, mut)), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
             variables["params"])
         got = mut["intermediates"]
         dropped = [got["input_encoder"]["Dropout_0"]]

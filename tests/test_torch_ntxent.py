@@ -52,8 +52,8 @@ PORT = {"fused": ntxent.nt_xent, "formula": nt_xent_loss}
 def jax_losses(shape, temp):
     """(XLA formula, Pallas interpret) loss sums and the formula's row count."""
     z1, z2, valid = (jnp.array(a) for a in case(*shape))
-    ref_sum, ref_rows = jax_nt_xent_loss(z1, z2, np.float32(temp), valid)
-    pl_sum, _ = ntxent_pallas.nt_xent_pallas(z1, z2, np.float32(temp), valid)
+    ref_sum, ref_rows = jax.jit(jax_nt_xent_loss)(z1, z2, np.float32(temp), valid)
+    pl_sum, _ = jax.jit(ntxent_pallas.nt_xent_pallas)(z1, z2, np.float32(temp), valid)
     return float(ref_sum), float(pl_sum), float(ref_rows)
 
 
@@ -66,7 +66,7 @@ def jax_grads(shape, temp):
         def mean_loss(a, b):
             s, n = fn(a, b, np.float32(temp), valid)
             return s / jnp.maximum(n, 1.0)
-        return [np.asarray(g) for g in jax.grad(mean_loss, argnums=(0, 1))(z1, z2)]
+        return [np.asarray(g) for g in jax.jit(jax.grad(mean_loss, argnums=(0, 1)))(z1, z2)]
 
     return grads(jax_nt_xent_loss), grads(ntxent_pallas.nt_xent_pallas)
 
@@ -150,8 +150,8 @@ def test_three_hundred_rows_at_full_width_against_the_formula():
         s, n = jax_nt_xent_loss(a, b, temp, jnp.array(valid))
         return s / n
 
-    want, (w1, w2) = jax.value_and_grad(mean_loss, argnums=(0, 1))(jnp.array(z1),
-                                                                  jnp.array(z2))
+    want, (w1, w2) = jax.jit(jax.value_and_grad(mean_loss, argnums=(0, 1)))(
+        jnp.array(z1), jnp.array(z2))
     a, b = t(z1).requires_grad_(), t(z2).requires_grad_()
     s, n = ntxent.nt_xent(a, b, torch.tensor([temp]), t(valid.astype(np.float32)))
     (s / n).backward()
