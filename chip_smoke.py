@@ -101,7 +101,22 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 the 6x store, launches K3 fwd and bwd and no K1; (7) the JAX
                 package's outputs/{pretrain,finetune,metrics} are unchanged
                 (listed by path);
- 13. timing  -- device-time medians (each call queued behind a sleep
+ 13. data    -- the port's offline preprocessing (data/setup.py, host code)
+                on this machine, then the kernels driven from the stores it
+                made: (1) setup.main at scale 1 without raw files, one
+                dataset at a time (each one's seconds), the nine stores held
+                against the digests of the JAX package's (SCALE1_DIGESTS:
+                integer arrays by SHA-256, float arrays by their moments);
+                (2) Cora at 6x scale, equal array for array to the tracked
+                data/processed_6x stores; (3) through the drivers' main(argv)
+                on a temporary out_root: run_pretrain s2 seed 42 for 1 epoch
+                on stores made at scale 0.1 (K1 and K2 fwd and bwd),
+                run_finetune ENZYMES full_finetune b1 for 3 epochs on the
+                scale-1 store (K1 only) and Cora_NC b1 --aggregation csr for
+                1 epoch on the 6x store (K3 and no K1), each at the launch
+                counts of DATA_LAUNCHES, each summary's fidelity block
+                recording the made stores' source, scale and calibration;
+ 14. timing  -- device-time medians (each call queued behind a sleep
                 kernel, so the host's launch cost is left out; the time per
                 call beside it) of K1 fwd and bwd (split, and bf16), of the
                 three K2 kernels and of K3 fwd and bwd (Cora_NC 6x and the
@@ -113,7 +128,7 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 each train step, csr ones included, and of the K2 Function
                 against the plain NT-Xent formula (forward + backward) from
                 16 to 8192 rows;
- 14. profile -- each serving forward's and train step's device time by kernel
+ 15. profile -- each serving forward's and train step's device time by kernel
                 (torch.profiler) and the share of its time the card idles.
 
 The build phase prints every kernel's registers, shared memory and spills
@@ -253,6 +268,177 @@ DRIVER_FT_EPOCHS = 4
 DRIVER_CSR_EPOCHS = 3
 DRIVER_PEAK_TOL = 0.10
 STEADY_KEYS = ("test/steady_steps_per_sec", "test/steady_edges_per_sec")
+# The data phase: the port's offline preprocessing (data/setup.py) on the
+# card's machine, then K1, K2 and K3 driven from the stores it made. The s2
+# cell pretrains 1 epoch on stores at scale 0.1: MUTAG, PROTEINS, NCI1 and
+# ENZYMES with 18, 111, 411 and 60 graphs (train 16, 99, 369, 48; val 2, 12,
+# 42, 6). Launches predicted from the code and these sizes: 369 // 8 = 46
+# steps of STEP_LAUNCHES["s2"], then the epoch's evaluation over 5 val batches
+# (1, 1, 2, 1) x 2 tasks x (2 views x 5 layers of K1, 1 NT-Xent). The
+# ENZYMES b1 cell on the scale-1 store (train 480, val 60, test 60 graphs in
+# batches of 32): 15 steps x (5, 4) and 2 val batches x 5 per epoch, then 2
+# test batches x 5; its patience is int(3 / 2) = 1, so it may stop after
+# epoch 2 and its count is read at the epochs it ran. The csr cell, Cora_NC
+# for 1 epoch on the 6x store: one full-graph step (5, 5), one val and one
+# test forward (5 each).
+DATA_PRETRAIN_SCALE = 0.1
+DATA_PRETRAIN_GRAPHS = {"MUTAG": 18, "PROTEINS": 111, "NCI1": 411, "ENZYMES": 60}
+DATA_CSR_SCALE = 6.0
+DATA_FT_EPOCHS = 3
+DATA_CSR_EPOCHS = 1
+DATA_S2_STEPS, DATA_S2_VAL_BATCHES = 46, 5
+DATA_LAUNCHES = {
+    "pretrain s2": lambda epochs: {
+        "gin_spmm_fwd": DATA_S2_STEPS * 80 + DATA_S2_VAL_BATCHES * 2 * 10,
+        "gin_spmm_bwd": DATA_S2_STEPS * 80,
+        "ntxent_fwd": DATA_S2_STEPS * 8 + DATA_S2_VAL_BATCHES * 2,
+        "ntxent_bwd": DATA_S2_STEPS * 8},
+    "finetune ENZYMES b1": lambda epochs: {
+        "gin_spmm_fwd": epochs * (15 * 5 + 2 * 5) + 2 * 5, "gin_spmm_bwd": epochs * 15 * 4},
+    "finetune Cora_NC b1 csr": lambda epochs: {
+        "csr_spmm_fwd": epochs * (5 + 5) + 5, "csr_spmm_bwd": epochs * 5},
+}
+# Float moments of a store against SCALE1_DIGESTS: relative, since the sums
+# may round otherwise on another CPU.
+DIGEST_RTOL = 1e-6
+# Digests (store_digest) of the nine stores that the JAX package's setup
+# writes at scale 1, seed 0, without raw files
+# (python -m gnn_pretraining_tpu.data.setup --raw_dir <empty directory>,
+# scikit-learn 1.9.0, networkx 3.6.1); the data phase holds the port's stores
+# against them: integer arrays exactly, float moments at DIGEST_RTOL.
+SCALE1_DIGESTS = {
+    "CiteSeer_LP": {
+        "edge_index": ["int32", [2, 9104], "6575a9c529de48b97df3f04d99b72b2d497ef67a81504b7dbe9df90ce142c41e"],
+        "edge_offsets": ["int64", [2], "c992feb069959cddbeddf712d4a52590395c96de5d01100231709b7e303caa93"],
+        "meta__scale": "1.0",
+        "meta__source": "synthetic",
+        "name": "CiteSeer_LP",
+        "node_features": ["float32", [3327, 3703], 3327.00007096678, 276.57774258509204, 0.20000000298023224],
+        "node_offsets": ["int64", [2], "6f90e569728c6e58bb3de71182fccb17e63e7d95528c439f9929139b5fa214b9"],
+        "node_y": ["int64", [3327], "8d42b3058e78d7528ec9b0f5c324eceff38baccd823a606284fee3b48c44468e"],
+        "split__test_neg": ["int64", [2, 910], "68f20a7e943d8bfa29602ac08e1f9dde30b1e15633d35a6390050027fa68e800"],
+        "split__test_pos": ["int64", [2, 910], "5395fa294a2991edbc8625ff45763ec4acdef7a05cea6606c464bd83f177c409"],
+        "split__train_pos": ["int64", [2, 7284], "550db57568ece423bf7aab26bfdd7318f4e42208b06d98362e2f267c454624a4"],
+        "split__val_neg": ["int64", [2, 910], "c3e7df2745228445c5cb5941c470d85ea7a4a004f388d8d7098c87a9bbca8bf9"],
+        "split__val_pos": ["int64", [2, 910], "4f80968ad384af770b0bd2733c55a17ad90449215f97d74ac0458262595c2d8d"],
+        "y": ["int64", [3327], "8d42b3058e78d7528ec9b0f5c324eceff38baccd823a606284fee3b48c44468e"],
+    },
+    "CiteSeer_NC": {
+        "edge_index": ["int32", [2, 9104], "6575a9c529de48b97df3f04d99b72b2d497ef67a81504b7dbe9df90ce142c41e"],
+        "edge_offsets": ["int64", [2], "c992feb069959cddbeddf712d4a52590395c96de5d01100231709b7e303caa93"],
+        "meta__scale": "1.0",
+        "meta__source": "synthetic",
+        "name": "CiteSeer_NC",
+        "node_features": ["float32", [3327, 3703], 3327.00007096678, 276.57774258509204, 0.20000000298023224],
+        "node_offsets": ["int64", [2], "6f90e569728c6e58bb3de71182fccb17e63e7d95528c439f9929139b5fa214b9"],
+        "node_y": ["int64", [3327], "8d42b3058e78d7528ec9b0f5c324eceff38baccd823a606284fee3b48c44468e"],
+        "split__test": ["int64", [1000], "ed24dfd87a0b710a2046252f15ac4bf89fd8de7629376dcbfb6b54ae339bea3a"],
+        "split__train": ["int64", [120], "953aa5956831de5817c0531f9899f97e822aba32958509ad6054d1aa87fb88db"],
+        "split__val": ["int64", [500], "951bea1066266cc579d2a02614eebb1797bceb5f56c16e7ba4605d99f27f33bd"],
+        "y": ["int64", [3327], "8d42b3058e78d7528ec9b0f5c324eceff38baccd823a606284fee3b48c44468e"],
+    },
+    "Cora_LP": {
+        "edge_index": ["int32", [2, 10556], "dc20b08fa06bab053f76987c2d2a0e0b7490a30438c8df5ab494636315136df9"],
+        "edge_offsets": ["int64", [2], "a7ac73970eabd0e0f4cf4e2e62f6d4cc15c9a5657e0b1e8bc32f85288d199319"],
+        "meta__scale": "1.0",
+        "meta__source": "synthetic",
+        "name": "Cora_LP",
+        "node_features": ["float32", [2708, 1433], 2708.000056423247, 223.49076684406435, 0.20000000298023224],
+        "node_offsets": ["int64", [2], "414089392a8343314e8e6b72c41cf9b2d047c45955c5de33033f739184d907de"],
+        "node_y": ["int64", [2708], "105863e35c7fb18cbbeea5adf553ab463ed239fe9769f29e8da317cf61d9e704"],
+        "split__test_neg": ["int64", [2, 1056], "c193b447137feecd437039192bc325416edac98576901f0668f2a95aae014dbb"],
+        "split__test_pos": ["int64", [2, 1056], "0dedc48be25ffd09e8347179cb019af721e8bcdda5fe210e82d5d1a2e41c5d68"],
+        "split__train_pos": ["int64", [2, 8445], "8fa343e6eb55967bef8c9f1a2f0ec8567b036966de5e27fd4ab81572457708d3"],
+        "split__val_neg": ["int64", [2, 1055], "a5ae53d791baa221786e13c9eecefda80ec570ac152c96f6e55e95a2b39d6ae2"],
+        "split__val_pos": ["int64", [2, 1055], "16d611a21680a06f0a18f8a2e348a1200920c1ad66876795cbe491d918a84042"],
+        "y": ["int64", [2708], "105863e35c7fb18cbbeea5adf553ab463ed239fe9769f29e8da317cf61d9e704"],
+    },
+    "Cora_NC": {
+        "edge_index": ["int32", [2, 10556], "dc20b08fa06bab053f76987c2d2a0e0b7490a30438c8df5ab494636315136df9"],
+        "edge_offsets": ["int64", [2], "a7ac73970eabd0e0f4cf4e2e62f6d4cc15c9a5657e0b1e8bc32f85288d199319"],
+        "meta__scale": "1.0",
+        "meta__source": "synthetic",
+        "name": "Cora_NC",
+        "node_features": ["float32", [2708, 1433], 2708.000056423247, 223.49076684406435, 0.20000000298023224],
+        "node_offsets": ["int64", [2], "414089392a8343314e8e6b72c41cf9b2d047c45955c5de33033f739184d907de"],
+        "node_y": ["int64", [2708], "105863e35c7fb18cbbeea5adf553ab463ed239fe9769f29e8da317cf61d9e704"],
+        "split__test": ["int64", [902], "5f45674718955434be521faaed70e39e680f18d73508c5ba6273485ee351d9c9"],
+        "split__train": ["int64", [140], "f36579cb8e91316f390983c1158471061f35822d50fb784dcff7cc43bba15118"],
+        "split__val": ["int64", [451], "8d0fe314e30143cecb945412c99585970a40d009ed9166786ce15f43a119e35f"],
+        "y": ["int64", [2708], "105863e35c7fb18cbbeea5adf553ab463ed239fe9769f29e8da317cf61d9e704"],
+    },
+    "ENZYMES": {
+        "edge_index": ["int32", [2, 74420], "e11f6c7ac3435c4c6b16ef1bf18f9d30c4aa3ec06c0ed75fae3771d6b136979d"],
+        "edge_offsets": ["int64", [601], "9c09eea61688fb39ad71a08644565f7312f41178ba43dc0f5f748568397a8065"],
+        "graph_properties": ["float32", [600, 12], 45.411430332111195, 6789.652482595446, 4.919858455657959],
+        "meta__homophily": "0.0",
+        "meta__scale": "1.0",
+        "meta__source": "synthetic",
+        "name": "ENZYMES",
+        "node_features": ["float32", [19586, 21], 331.5339419875469, 408796.9639908015, 3.0],
+        "node_offsets": ["int64", [601], "4053f0c5d2efbc45cba52c4078ceaaa556e91d0ac1a2ab1260c08dd6f08cb662"],
+        "split__test": ["int64", [60], "b841d761a675a0f3750734e93673b77a338157d4c5d58e4e45a3099cd73573f2"],
+        "split__train": ["int64", [480], "7e85da4a39bccbe573d9732f30994a4f5404bfb797f702c6af5f00e9dd44e6f9"],
+        "split__val": ["int64", [60], "fab991d6f1616b642e170830b471db51c104e68f2be030383a417d06339d31a4"],
+        "y": ["int64", [600], "411f0888ee6e371c82f9e99d6e9ef4ff0ef589bcdc90f9930b949db1aedc6807"],
+    },
+    "MUTAG": {
+        "edge_index": ["int32", [2, 7442], "ed143dcdcefdfa3109725f1256ce8969997b44a05a144ff993fac6917ba67a0c"],
+        "edge_offsets": ["int64", [189], "1f39acf19cc3e21d1fb069ebcfcd4e94a0c56f82a06fa0b569c482d5f12bf4ce"],
+        "graph_properties": ["float32", [188, 12], 20.03464930644259, 2095.7610139832404, 4.063368320465088],
+        "meta__homophily": "0.0",
+        "meta__scale": "1.0",
+        "meta__source": "synthetic",
+        "name": "MUTAG",
+        "node_features": ["float32", [3390, 7], 3390.0, 3390.0, 1.0],
+        "node_offsets": ["int64", [189], "cfc751c552a19a3450053b3cf982fc382031a547ed440ea082c168419fb00f54"],
+        "split__train": ["int64", [169], "883ee7cd7329c26d17eabd7c97ab8489f47e83b720034ef8ea8ae9b8c0bebba8"],
+        "split__val": ["int64", [19], "8f82d7811f463cef9c4797f41fa57c6f0930d47817134ac647daa3fc60e035fb"],
+        "y": ["int64", [188], "762605c263a873178e581bdfe2af9c1249f6bf2c2386e3457ae23c80e16df448"],
+    },
+    "NCI1": {
+        "edge_index": ["int32", [2, 270440], "1f501180900c7cf5615eb646280853264c7efe797738ab1795a652aac9991ddf"],
+        "edge_offsets": ["int64", [4111], "151836df7f8f0c21df87da5d4da56b146f6a51646bfb8da01d7452e80d9c739b"],
+        "graph_properties": ["float32", [4110, 12], -6.516979931737296, 45199.7595243299, 8.251921653747559],
+        "meta__homophily": "0.0",
+        "meta__scale": "1.0",
+        "meta__source": "synthetic",
+        "name": "NCI1",
+        "node_features": ["float32", [122917, 37], 122917.0, 122917.0, 1.0],
+        "node_offsets": ["int64", [4111], "525e919f364fba0ae2f6ce707d61052093a20940134d036fd1962a7ee49124dd"],
+        "split__train": ["int64", [3699], "21a72a280a5d67b2bce43c2af9e012b4be2c89b6b340f8d6a64c10a1062fc75a"],
+        "split__val": ["int64", [411], "b19acbeabbe7da964ad02a9ab1d0b8abe70351882c2f66619f4aef4d9b9778d4"],
+        "y": ["int64", [4110], "c05af7a2b4219084d00301cc0da014d1327b112b99dde9b521b0ff84688984f3"],
+    },
+    "PROTEINS": {
+        "edge_index": ["int32", [2, 160916], "31cb814ab7eacabe73045aaf39a4a330d3e38e1ac677de28c4afd533e2ae1f73"],
+        "edge_offsets": ["int64", [1114], "a95e6a633cb0414bcf387142b2e081e020e50cde9297dbc7dfef403b983a22b1"],
+        "graph_properties": ["float32", [1113, 12], 18.066890308167785, 12343.881631181657, 6.068387031555176],
+        "meta__homophily": "0.0",
+        "meta__scale": "1.0",
+        "meta__source": "synthetic",
+        "name": "PROTEINS",
+        "node_features": ["float32", [43482, 4], 45201.499331370695, 89402.95508167038, 4.305697441101074],
+        "node_offsets": ["int64", [1114], "69c4226c438153b577b088e1c5d24f5ecd83cbc658eb504d76f8cd8bd70e1486"],
+        "split__train": ["int64", [1001], "f23e2a326c6d74bed7f783cc3a0547e47cb4c6c2029a4b4ad217ff8ae9337a7c"],
+        "split__val": ["int64", [112], "11945e35ff0e397e95681ce3081bd307a1de663ba179acec6de3c43fb2d52753"],
+        "y": ["int64", [1113], "b3cf5c40f26174b10c89826ee230f0cdfaffb7f5546e1abe9ffe0d61451da756"],
+    },
+    "PTC_MR": {
+        "edge_index": ["int32", [2, 10056], "f73a6644d098a11b462bcf65fc9d80ac616c7d50242036e5b20986ac691bd796"],
+        "edge_offsets": ["int64", [345], "21ddb638674ef3f4794a3db11c651ec99f5f5a3f179557066ee5d68f037bc94e"],
+        "meta__homophily": "0.0",
+        "meta__scale": "1.0",
+        "meta__source": "synthetic",
+        "name": "PTC_MR",
+        "node_features": ["float32", [5028, 18], 5028.0, 5028.0, 1.0],
+        "node_offsets": ["int64", [345], "ffa2125f4153394da8db84340e42ac9c210798c1c19c47db6da7ebbacdf1e8bc"],
+        "split__test": ["int64", [35], "0c619b4d712212d7618140d09a52f9a5da9b47d3612aca064f4d200801d61463"],
+        "split__train": ["int64", [275], "b46a4f2c2522b71ac7667673c4cea3ccb9182765fdbbae3cc641aeabf4e57d50"],
+        "split__val": ["int64", [34], "3d41df7000d8432ab6f307d0ee8bd7d80f437ddec80a40ec8fabc773b4712640"],
+        "y": ["int64", [344], "4f3146530d0ae7ed48b995199f913ede6246e74a6318e35a265301c54cdc2026"],
+    },
+}
 # The JAX package's default output directories, which no port run may touch.
 JAX_OUTPUT_DIRS = ("pretrain", "finetune", "metrics")
 TIMING_REPS = 30
@@ -1527,6 +1713,139 @@ def drivers_phase(processed_dir: Path, resume_dir: Path, out_root: Path) -> None
         raise AssertionError(f"the drivers phase failed its checks: {checks}")
 
 
+def store_digest(path: Path) -> dict:
+    """Key -> digest of one store's arrays: integer and bool arrays by dtype,
+    shape and the SHA-256 of their bytes; float arrays by dtype, shape and
+    their float64 sum, sum of squares and max |x|; strings (name, meta__*)
+    as they are."""
+    import hashlib
+
+    out = {}
+    with np.load(path, allow_pickle=False) as z:
+        for key in sorted(z.files):
+            a = z[key]
+            if a.dtype.kind in "biu":
+                out[key] = [str(a.dtype), list(a.shape),
+                            hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()]
+            elif a.dtype.kind == "f":
+                x = a.astype(np.float64)
+                out[key] = [str(a.dtype), list(a.shape), float(x.sum()),
+                            float((x * x).sum()), float(np.abs(x).max(initial=0.0))]
+            else:
+                out[key] = str(a)
+    return out
+
+
+def digests_match(got: dict, want: dict) -> bool:
+    """Two ``store_digest``s agree: strings and integer arrays exactly, float
+    arrays in dtype and shape and their moments at DIGEST_RTOL."""
+    def agree(g, w):
+        if isinstance(w, str) or isinstance(w[2], str):
+            return g == w
+        return g[:2] == w[:2] and all(math.isclose(a, b, rel_tol=DIGEST_RTOL)
+                                      for a, b in zip(g[2:], w[2:]))
+
+    return sorted(got) == sorted(want) and all(agree(got[k], w) for k, w in want.items())
+
+
+def data_phase(tmp: Path, out_root: Path) -> None:
+    """The port's offline preprocessing on this machine, then the drivers'
+    cells from the stores it made: checks of the module docstring's data
+    phase."""
+    import contextlib
+    import io
+
+    from gnn_pretraining_tpu_torch import config, run_finetune, run_pretrain
+    from gnn_pretraining_tpu_torch.data import setup
+
+    t0 = time.perf_counter()
+    raw = tmp / "raw_empty"
+    raw.mkdir()
+    dirs = {"full": tmp / "full", "csr": tmp / "cora_6x", "pretrain": tmp / "pretrain_0.1"}
+
+    def make(out, **kw):
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            setup.main(processed_dir=out, raw_dir=raw, **kw)
+        return time.perf_counter() - t
+
+    seconds = {name: make(dirs["full"], only=[name])
+               for name in (*config.TUDATASETS, *config.PLANETOID_DATASETS)}
+    seconds[f"Cora x{DATA_CSR_SCALE:g}"] = make(dirs["csr"], synthetic_scale=DATA_CSR_SCALE,
+                                                only=["Cora"])
+    seconds[f"pretrain x{DATA_PRETRAIN_SCALE:g}"] = make(
+        dirs["pretrain"], synthetic_scale=DATA_PRETRAIN_SCALE,
+        only=list(config.PRETRAIN_TUDATASETS))
+
+    made = {p.stem: store_digest(p) for p in sorted(dirs["full"].glob("*.npz"))}
+    mismatched = sorted(set(made) ^ set(SCALE1_DIGESTS)) + [
+        name for name in sorted(set(made) & set(SCALE1_DIGESTS))
+        if not digests_match(made[name], SCALE1_DIGESTS[name])]
+    tracked_equal = {}
+    for name in ("Cora_NC", "Cora_LP"):
+        with np.load(dirs["csr"] / f"{name}.npz") as got, \
+                np.load(CSR_STORES / f"{name}.npz") as want:
+            tracked_equal[name] = sorted(got.files) == sorted(want.files) and all(
+                got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+                for k in want.files)
+    graphs = {}
+    for name in DATA_PRETRAIN_GRAPHS:
+        with np.load(dirs["pretrain"] / f"{name}.npz") as z:
+            graphs[name] = len(z["node_offsets"]) - 1
+
+    kernels = counters()
+    root = out_root / "data"
+
+    def finetune(domain, epochs, processed, *extra):
+        return ["--domain_name", domain, "--finetune_strategy", "full_finetune",
+                "--pretrained_scheme", "b1", "--seed", "42", "--epochs", str(epochs),
+                "--processed_dir", str(processed), "--out_root", str(root), *extra]
+
+    ft_metrics = root / "metrics" / config.FINETUNE_PROJECT_NAME
+    cells = (("pretrain s2", run_pretrain.main,
+              ["--exp_name", "s2", "--seed", "42", "--epochs", "1", "--processed_dir",
+               str(dirs["pretrain"]), "--out_root", str(root)],
+              root / "metrics" / config.PRETRAIN_PROJECT_NAME / "s2_42.summary.json",
+              DATA_PRETRAIN_SCALE),
+             ("finetune ENZYMES b1", run_finetune.main,
+              finetune("ENZYMES", DATA_FT_EPOCHS, dirs["full"]),
+              ft_metrics / "ENZYMES_full_finetune_b1_42.summary.json", 1.0),
+             ("finetune Cora_NC b1 csr", run_finetune.main,
+              finetune("Cora_NC", DATA_CSR_EPOCHS, dirs["csr"], "--aggregation", "csr"),
+              ft_metrics / "Cora_NC_full_finetune_b1_42.summary.json", DATA_CSR_SCALE))
+    runs, checks = {}, {}
+    for name, main, argv, summary_path, scale in cells:
+        before = {k: c.launches for k, c in kernels.items()}
+        t = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        launched = {k: c.launches - before[k] for k, c in kernels.items()}
+        summary = json.loads(summary_path.read_text())
+        epochs = int(summary.get("test/progress/epoch", 1))
+        want = {k: 0 for k in kernels} | DATA_LAUNCHES[name](epochs)
+        fidelity = {k: summary.get(f"fidelity/{k}")
+                    for k in ("data_source", "synthetic_scale", "calibration")}
+        runs[name] = {"rc": rc, "seconds": time.perf_counter() - t, "epochs": epochs,
+                      "launches": launched, "predicted": want, "fidelity": fidelity}
+        print(printed.getvalue(), end="", flush=True)
+        checks[f"{name}: rc 0, launches as predicted"] = rc == 0 and launched == want
+        checks[f"{name}: fidelity"] = fidelity == {
+            "data_source": "synthetic", "synthetic_scale": scale, "calibration": 0.0}
+    checks = {"scale-1 stores match the JAX digests": not mismatched,
+              "Cora x6 stores equal data/processed_6x": all(tracked_equal.values()),
+              "scale-0.1 graph counts": graphs == DATA_PRETRAIN_GRAPHS,
+              "ENZYMES epochs": runs["finetune ENZYMES b1"]["epochs"] in (2, DATA_FT_EPOCHS),
+              **checks}
+    ok = all(checks.values())
+    emit({"phase": "data", "setup_seconds": seconds, "mismatched_stores": mismatched,
+          "tracked_equal": tracked_equal, "pretrain_graphs": graphs,
+          "cells": runs, "seconds": time.perf_counter() - t0, "checks": checks, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the data phase failed its checks: {checks}")
+
+
 def device_ms(fn) -> float:
     """Device time of one call: the median over TIMING_REPS calls of the
     CUDA-event time around it, each call queued behind a ~0.5 ms sleep
@@ -2105,22 +2424,25 @@ def main() -> int:
             device, resume_dir, out_root)))
         _, drivers = run_path(lambda: clocked("drivers", lambda: drivers_phase(
             processed_dir, resume_dir, out_root)))
+        _, data = run_path(lambda: clocked("data", lambda: data_phase(Path(tmp), out_root)))
     paths = {"serving": serving, "train": train, "pretrain": pretrain,
              "pretrain_tasks": pretrain_tasks, "csr": csr, "resume": resume,
-             "drivers": drivers}
+             "drivers": drivers, "data": data}
     launches = {name: {path: counts[name] for path, counts in paths.items()}
                 for name in kernels}
     k3 = CELL_KERNELS["csr"]
     unlaunched = [name for name in kernels if name not in k3
                   and min(pretrain[name], pretrain_tasks[name], resume[name],
-                          drivers[name]) < 1]
-    unlaunched += [name for name in k3 if min(csr[name], drivers[name]) < 1]
+                          drivers[name], data[name]) < 1]
+    unlaunched += [name for name in k3 if min(csr[name], drivers[name], data[name]) < 1]
     if min(serving["gin_spmm_fwd"], train["gin_spmm_fwd"], train["gin_spmm_bwd"]) < 1 \
             or unlaunched:
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
-    # The drivers path runs dense and csr cells; its phase checks each cell.
+    # The drivers and data paths run dense and csr cells; their phases check
+    # each cell.
     strays = {name: [path for path, n in launches[name].items()
-                     if n and path != "drivers" and (path == "csr") != (name in k3)]
+                     if n and path not in ("drivers", "data")
+                     and (path == "csr") != (name in k3)]
               for name in kernels if name in k3 or name in CELL_KERNELS["pallas"]}
     if any(strays.values()):
         raise AssertionError(f"K1 launched on the csr path or K3 off it: {strays}")

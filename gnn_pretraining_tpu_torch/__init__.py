@@ -10,7 +10,9 @@ multi-task pretraining with the contrastive tasks (``pretrain.pretrain``:
 schemes s2 and b3), on kernel K1, the GIN aggregation, forward and backward,
 and kernel K2, the fused NT-Xent, forward and backward; and fine-tuning on
 graphs past the dense limit (``aggregation="csr"``) on kernel K3, the
-block-CSR GIN aggregation, forward and backward.
+block-CSR GIN aggregation, forward and backward. The offline preprocessing
+(``python -m gnn_pretraining_tpu_torch.data.setup``) writes the stores they
+read, the same as the JAX package's setup, on host code only.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -3,8 +3,8 @@
 The port (``gnn_pretraining_tpu_torch``) keeps its own copy of every constant;
 these tests hold each UPPERCASE name equal to its JAX counterpart, and check
 in a fresh interpreter that importing every port module pulls in none of
-jax, flax, msgpack or the JAX package. ``chip_smoke.py`` runs when imported,
-so its import statements are read from its source.
+jax, flax, msgpack, sklearn, networkx or the JAX package. ``chip_smoke.py``
+runs when imported, so its import statements are read from its source.
 """
 
 from __future__ import annotations
@@ -29,7 +29,9 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 CONSTANTS = sorted(n for n in dir(jax_config) if n.isupper())
-FORBIDDEN = ("jax", "flax", "msgpack", "gnn_pretraining_tpu")
+# sklearn and networkx: the card's machine has neither; the port's offline
+# preprocessing replaces them with numpy and scipy.
+FORBIDDEN = ("jax", "flax", "msgpack", "gnn_pretraining_tpu", "sklearn", "networkx")
 # The port's own values. Dispatch: the JAX package's are TPU crossovers; the
 # fused NT-Xent (K2) takes every single-device NT-Xent on the card until it is
 # redesigned for the H100; its crossover against the plain formula is measured
@@ -69,7 +71,9 @@ def test_port_modules_import_no_jax():
     assert {"gnn_pretraining_tpu_torch.ops._build", "gnn_pretraining_tpu_torch.ops.spmm_csr",
             "gnn_pretraining_tpu_torch.finetune.runners",
             "gnn_pretraining_tpu_torch.run_pretrain",
-            "gnn_pretraining_tpu_torch.run_finetune"} <= set(modules)
+            "gnn_pretraining_tpu_torch.run_finetune",
+            "gnn_pretraining_tpu_torch.data.setup", "gnn_pretraining_tpu_torch.data.parsers",
+            "gnn_pretraining_tpu_torch.data.synthetic"} <= set(modules)
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))")

@@ -188,9 +188,14 @@ def test_one_adamw_step_with_zero_gradient_leaves_matches_optax(s2_model):
     jgrads = state_dict_to_variables(grads)["params"]
     opt = jax_opt.create_task_specific_optimizer(params, tasks)
     state = opt.init(params)
-    for _ in range(2):
+
+    @jax.jit
+    def step(params, state):
         updates, state = opt.update(jgrads, state, params)
-        params = optax.apply_updates(params, updates)
+        return optax.apply_updates(params, updates), state
+
+    for _ in range(2):
+        params, state = step(params, state)
 
     optimizer, _, _ = optimizers.create_task_specific_optimizer(model, tasks)
     start = model.mask_token.detach().clone()
@@ -211,10 +216,11 @@ def test_masked_randperm_select_matches_jax():
     groups = np.concatenate([groups, np.zeros(7, np.int32)])
     mask = np.concatenate([np.ones(23), np.zeros(7)]).astype(np.float32)
     num = np.array([1, 3, 0, 6, 2], np.int32)
+    select = jax.jit(jax_select)
     for seed in range(3):
         key = jax.random.PRNGKey(seed)
-        want = np.asarray(jax_select(key, jnp.asarray(groups), jnp.asarray(mask),
-                                     jnp.asarray(num)))
+        want = np.asarray(select(key, jnp.asarray(groups), jnp.asarray(mask),
+                                 jnp.asarray(num)))
         scores = t(jax.random.uniform(key, (groups.size,)))
         got = masked_randperm_select(t(groups), t(mask), t(num), scores=scores).numpy()
         np.testing.assert_array_equal(got, want)
@@ -248,9 +254,10 @@ def test_views_match_jax_given_its_draws(samplers):
     jsampler, sampler = samplers
     jbatch = jsampler.sample_step()["ENZYMES"]
     batch = sampler.sample_step()["ENZYMES"]
+    augment_view = jax.jit(jax_aug.augment_view)
     for seed in range(4):
         key = jax.random.PRNGKey(seed)
-        want = jax_aug.augment_view(key, jbatch)
+        want = augment_view(key, jbatch)
         got = aug.augment_view(batch, draws=jax_draws(key, jbatch))
         np.testing.assert_array_equal(got.node_keep.numpy(), np.asarray(want.node_keep))
         np.testing.assert_array_equal(got.edge_keep.numpy(), np.asarray(want.edge_keep))
