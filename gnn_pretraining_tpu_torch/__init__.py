@@ -12,7 +12,12 @@ and kernel K2, the fused NT-Xent, forward and backward; and fine-tuning on
 graphs past the dense limit (``aggregation="csr"``) on kernel K3, the
 block-CSR GIN aggregation, forward and backward. The offline preprocessing
 (``python -m gnn_pretraining_tpu_torch.data.setup``) writes the stores they
-read, the same as the JAX package's setup, on host code only.
+read, the same as the JAX package's setup, on host code only. At the
+boundaries: reference PyTorch ``.pt`` checkpoints import into the port's
+models (``utils.torch_import``), a fine-tuned model exports as a
+self-contained ``torch.export`` serving artifact (``serving.export_serving``,
+``python -m gnn_pretraining_tpu_torch.export_model``), and ``pretrain
+--debug_nans`` stops at the first NaN (``utils.profiling``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -35,9 +35,14 @@ restarts its numpy sampler from the seed on resume, and so draws epoch 1's
 batches again; this package does not. A JAX package's resume file loads
 too; it holds no stream states, so the streams start from their seeds.
 
+``--debug_nans`` (``utils.profiling.enable_nan_checks``) checks every task
+loss, the combined gradient and the updated parameters of each step, and
+every eval loss, and raises ``FloatingPointError`` at the first non-finite
+one; a NaN first made by a backward op raises it too, naming the op.
+
 Every scheme of ``config.ALL_SCHEMES`` runs. Left for later: the chunked
-``lax.scan`` runner (its per-step semantics are these), ``--data_parallel``
-and ``--debug_nans``.
+``lax.scan`` runner (its per-step semantics are these) and
+``--data_parallel``.
 """
 
 from __future__ import annotations
@@ -85,7 +90,12 @@ from gnn_pretraining_tpu_torch.utils.convert import (
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
 from gnn_pretraining_tpu_torch.utils.fidelity import fidelity_block
 from gnn_pretraining_tpu_torch.utils.logging import MetricLogger
-from gnn_pretraining_tpu_torch.utils.profiling import ThroughputMeter
+from gnn_pretraining_tpu_torch.utils.profiling import (
+    ThroughputMeter,
+    check_finite,
+    enable_nan_checks,
+    nan_checks_enabled,
+)
 
 FLUSH_EVERY = 8          # train steps between two fetches of their metrics
 RESUME_EVERY = 5         # epochs between two resume files (and the last one)
@@ -192,6 +202,19 @@ def _context(step: int, total_steps: int, views: ViewSource, draws: TaskDraws,
     return TaskContext(temperature=temp, views=views, grl_lambda=lam, draws=draws)
 
 
+def _task_grad(loss: torch.Tensor, params, step: int, task: str):
+    """Each parameter's gradient of ``loss`` (None where it has none). Under
+    the NaN checks, anomaly mode's error for a backward op that made a NaN
+    is raised as ``FloatingPointError``."""
+    try:
+        return torch.autograd.grad(loss, params, allow_unused=True)
+    except RuntimeError as err:
+        if nan_checks_enabled() and "nan values" in str(err):
+            raise FloatingPointError(f"non-finite value at train step {step}, "
+                                     f"task {task} backward: {err}") from err
+        raise
+
+
 def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimizer,
                     total_steps: int, views: ViewSource,
                     pcgrad_generator: Optional[torch.Generator] = None,
@@ -203,7 +226,10 @@ def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimize
     scheme with those tasks needs one). ``train_step.last_task_grads`` holds
     the last step's per-task gradients (task -> one tensor per parameter, in
     ``named_parameters`` order), before PCGrad, the domain-adversarial one
-    among them."""
+    among them. Under ``utils.profiling.enable_nan_checks`` each task loss,
+    the combined gradient and the updated parameters are checked
+    (``FloatingPointError`` at the first non-finite value, naming the step,
+    counted from 0, and the task or parameter)."""
     tasks = [t for t in cfg.active_tasks if t != "domain_adv"]
     has_da = "domain_adv" in cfg.active_tasks
     names = [n for n, _ in model.named_parameters()]
@@ -216,9 +242,13 @@ def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimize
         model.train()
         ctx = _context(state.opt_step, total_steps, views, draws, device)
         task_losses, per_domain_task, grads = {}, {}, {}
+        checked = nan_checks_enabled()
+        where = f"train step {state.opt_step}" if checked else None
         for t in tasks + ["domain_adv"] * has_da:
             loss, per_domain = compute_task_loss(t, model, domain_batches, ctx)
-            g = torch.autograd.grad(loss, params, allow_unused=True)
+            if checked:
+                check_finite(where, [(f"task {t} loss", loss)])
+            g = _task_grad(loss, params, state.opt_step, t)
             grads[t] = [torch.zeros_like(p) if gi is None else gi
                         for p, gi in zip(params, g)]
             task_losses[t] = loss.detach()
@@ -236,10 +266,16 @@ def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimize
             combined, metrics = grads[tasks[0]], {}
         if has_da:                                 # after PCGrad, before clipping
             combined = torch._foreach_add(combined, da_grads)
+        if checked:
+            check_finite(where, ((f"combined gradient of {n}", g)
+                                 for n, g in zip(names, combined)))
         clipped, pre_norm = clip_grads_torch(combined)
         for p, g in zip(params, clipped):
             p.grad = g
         optimizer.step()
+        if checked:
+            check_finite(where, ((f"parameter {n} after the update", p)
+                                 for n, p in zip(names, params)))
 
         metrics["train/loss/total"] = total
         for t, w in weights.items():
@@ -279,6 +315,8 @@ def make_eval_fn(model: PretrainableGNN, cfg: config.PretrainConfig,
         model.eval()
         ctx = _context(step, total_steps, views, draws, device)
         loss, _ = compute_task_loss(task, model, {domain: batch}, ctx)
+        if nan_checks_enabled():
+            check_finite(f"eval at step {step}", [(f"task {task} loss on {domain}", loss)])
         return loss
 
     return eval_task_batch
@@ -430,7 +468,7 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
     return {"best_val_total": best_total, "epochs": epoch, "checkpoint": str(ckpt_path)}
 
 
-def main() -> None:
+def main(argv=None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--exp_name", type=str, required=True,
                         choices=config.ALL_SCHEMES)
@@ -447,7 +485,12 @@ def main() -> None:
                         help="cuda unless given (cpu runs the plain versions)")
     parser.add_argument("--wandb", action="store_true",
                         help="mirror the metrics to wandb (must be installed)")
-    args = parser.parse_args()
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="anomaly mode and a finite check of every loss, "
+                             "gradient and update; raise at the first NaN")
+    args = parser.parse_args(argv)
+    if args.debug_nans:
+        enable_nan_checks()
     cfg = config.PretrainConfig(exp_name=args.exp_name, seed=args.seed)
     print(pretrain(cfg, aggregation=args.aggregation, epochs=args.epochs,
                    processed_dir=args.processed_dir, use_wandb=args.wandb,

@@ -73,7 +73,10 @@ def test_port_modules_import_no_jax():
             "gnn_pretraining_tpu_torch.run_pretrain",
             "gnn_pretraining_tpu_torch.run_finetune",
             "gnn_pretraining_tpu_torch.data.setup", "gnn_pretraining_tpu_torch.data.parsers",
-            "gnn_pretraining_tpu_torch.data.synthetic"} <= set(modules)
+            "gnn_pretraining_tpu_torch.data.synthetic",
+            "gnn_pretraining_tpu_torch.utils.torch_import",
+            "gnn_pretraining_tpu_torch.export_model",
+            "gnn_pretraining_tpu_torch.utils.profiling"} <= set(modules)
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))")
