@@ -47,7 +47,7 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 PCGrad order, dropout draws and ReLU branches; one step each
                 of b2, s1, s3, s4 (finite losses, the JAX step's metric keys,
                 launch counts); then pretrain() for 1 epoch of s2 and of s5
-                on the stores cut to a quarter of their graphs, and
+                on the stores cut to an eighth of their graphs, and
                 finetune() on ENZYMES for 1 epoch from each checkpoint (every
                 head in the checkpoint, the JAX tree's keys, the backbone
                 carried over);
@@ -101,6 +101,33 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 the 6x store, launches K3 fwd and bwd and no K1; (7) the JAX
                 package's outputs/{pretrain,finetune,metrics} are unchanged
                 (listed by path);
+ 12b. sweep  -- the sweep's process runtime (utils/runtime.py) and the
+                artifact exporter, with the runtime's pidfile and pause files
+                in a directory of the phase's own: (a) run_pretrain --sweep
+                --isolate 1 over 2 cells (b2 and s2 under seed 84, 1 epoch on
+                the resume phase's stores): two children on the card, each
+                cell's summary complete, each child's wall time, and the
+                orchestrator resolves no device and allocates no card
+                memory; the same command under --resume starts no child;
+                (b) while (a) runs, a requester process calls acquire_chip as
+                soon as the first child has recorded itself: the orchestrator
+                parks at the boundary before the second child, the paused
+                file names it, no child runs while it is parked, and
+                release_chip resumes the sweep; a pause file whose owner is
+                gone is discarded at once; (c) reclaim_chip terminates a
+                recorded sleeping process and leaves alone a process whose
+                pidfile holds another start time; (d) an in-process sweep of
+                8 cells (s2 and s5 pretrain, ENZYMES and Cora_NC full_finetune
+                b1, under seeds 42 and 84, 1 epoch each): host RSS, the
+                card's peak allocated and reserved memory after each cell,
+                whether maybe_clear_caches cleared, the machine's MemTotal
+                beside the clearing bound; (e) two processes of a launcher
+                (WORLD_SIZE 2, RANK 0 and 1, LOCAL_RANK 0) split a 4-cell grid
+                (b2 under 4 seeds) into grid[0::2] and grid[1::2]; (f) export_artifacts on the
+                fine-tune checkpoints of phase 6 and the pretrain checkpoints
+                of phase 8 and of (a): the manifest's sha256 and bytes
+                recomputed from the files, each serving artifact replayed on
+                the card within ARTIFACT_TOL of its eager model;
  13. data    -- the port's offline preprocessing (data/setup.py, host code)
                 on this machine, then the kernels driven from the stores it
                 made: (1) setup.main at scale 1 without raw files, one
@@ -159,11 +186,13 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 beside eager K1 serving; (d) an s2 step under
                 enable_nan_checks on a batch with one NaN feature row raises
                 FloatingPointError, a clean one gives the unchecked losses;
-                then, outside the path's counts, K2-fwd against its plain
-                version on that step's NT-Xent inputs that hold a NaN: NaN
-                where the plain version is NaN, a check that fails on the
-                card and is named in KNOWN_FAILURES (the script fails if it
-                passes, so that its repair takes it out).
+                then, outside the path's counts, K2-fwd and K2-bwd against
+                their plain versions on that step's NT-Xent inputs that hold
+                a NaN and on Ẑ with one valid or one invalid row made NaN on
+                the card: NaN exactly where the plain version's is (loss, mx,
+                den, dẐ), the finite entries within K2's tolerances. A check
+                named in KNOWN_FAILURES must fail and the script fails if it
+                passes; the list is empty.
 
 The build phase prints every kernel's registers, shared memory and spills
 (ptxas) and fails if a kernel of K1, K2 or K3 spills. Then the card's
@@ -185,6 +214,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -266,9 +296,10 @@ STEP_LAUNCHES = {"s2": (80, 8), "s5": (160, 8), "b4": (35, 2), "b2": (20, 0),
 TWIN_SCHEMES = ("s2", "s5", "b4")        # held against a dense-f32 twin
 CHECKED_SCHEMES = ("b2", "s1", "s3", "s4")  # one checked step each
 PRETRAIN_ENTRY_EPOCHS = 1
-# The entry epochs (pretrain() for s2 and s5) run on stores cut to a quarter
-# of each dataset's graphs, with the same graph sizes.
-ENTRY_STORE_SHARE = 4
+# The entry epochs (pretrain() for s2 and s5) run on stores cut to an eighth
+# of each dataset's graphs, with the same graph sizes (a quarter until the
+# sweep phase came: 56 and 123 s of the script on a slow host).
+ENTRY_STORE_SHARE = 8
 # K2 vs its plain versions: the summed loss, each row's loss and denominator
 # relative, dZ (the sum of the TPU's two backward terms) as max |diff| over
 # max |ref| (both f32 on the card; sums in another order).
@@ -303,6 +334,26 @@ DRIVER_FT_EPOCHS = 4
 DRIVER_CSR_EPOCHS = 3
 DRIVER_PEAK_TOL = 0.10
 STEADY_KEYS = ("test/steady_steps_per_sec", "test/steady_edges_per_sec")
+# The sweep phase: the sweep runtime of utils/runtime.py, the drivers'
+# --isolate and launcher shard, and the artifact exporter, on the card.
+# (a, b) An --isolate 1 sweep of the pretrain grid's shard 1 of 12 (b2 and s2
+# under seed 84), 1 epoch each on the resume phase's stores: two children on
+# the card, while a requester process asks for the card as soon as the first
+# child has recorded itself, with SWEEP_POLL polls and SWEEP_WAIT_S before
+# its reclaim fallback; then the same command under --resume. (d) An
+# in-process sweep of RSS_PRETRAIN's cells (1 epoch each on the resume
+# phase's stores) and RSS_FINETUNE's (full_finetune b1, 1 epoch on the
+# phase-5 stores). (e) Two processes of a launcher (WORLD_SIZE 2, RANK 0 and
+# 1, LOCAL_RANK 0) over SHARD_GRID's 4 cells, 1 epoch each. (f) The exporter
+# on the phase-6 fine-tune and phase-8 pretrain checkpoints (seed 42), then
+# on (a)'s (seed 84, which gives the ENZYMES b2 embedding artifact).
+SWEEP_ISOLATE = ["--sweep", "--num_shards", "12", "--shard_index", "1", "--epochs", "1",
+                 "--isolate", "1"]
+SWEEP_ISOLATE_CELLS = ("b2_84", "s2_84")
+SWEEP_WAIT_S, SWEEP_POLL = 120.0, 0.2
+RSS_PRETRAIN = (("s2", "s5"), (42, 84))           # schemes x seeds
+RSS_FINETUNE = (("ENZYMES", "Cora_NC"), (42, 84))  # domains x seeds
+SHARD_GRID = (("b2",), (42, 84, 126, 168))        # schemes x seeds
 # The data phase: the port's offline preprocessing (data/setup.py) on the
 # card's machine, then K1, K2 and K3 driven from the stores it made. The s2
 # cell pretrains 1 epoch on stores at scale 0.1: MUTAG, PROTEINS, NCI1 and
@@ -361,11 +412,15 @@ NAN_LAUNCHES = {"gin_spmm_fwd": 3 * 80, "gin_spmm_bwd": 3 * 80,
                 "ntxent_fwd": 3 * 8, "ntxent_bwd": 3 * 8}
 # Checks that fail on the card for a known fault, each with where it is
 # tracked; the script fails if one of them passes (take it out then).
-KNOWN_FAILURES = {
-    "d k2_fwd_nan_where_plain_is_nan":
-        "K2-fwd (csrc/ntxent.cu) leaves a valid row's loss finite where its plain "
-        "version gives NaN, on inputs that hold NaN (ROADMAP queue 3)",
-}
+KNOWN_FAILURES = {}
+# K2 on inputs that hold NaN (k2_nan_phase): besides the poisoned step's own
+# NT-Xent inputs, Ẑ of NTXENT_NAN_ROWS rows (ntxent_inputs) with one row made
+# NaN on the card (0/0, the card's NaN): a valid row, whose columns poison
+# every valid row, and an invalid one, whose columns are masked, so that only
+# its own row turns NaN. NaN where the plain version's is, in loss, mx and
+# den of every row and in dẐ; the finite entries within the kernel phase's
+# tolerances.
+NTXENT_NAN_ROWS = 832
 # Digests (store_digest) of the nine stores that the JAX package's setup
 # writes at scale 1, seed 0, without raw files
 # (python -m gnn_pretraining_tpu.data.setup --raw_dir <empty directory>,
@@ -1709,35 +1764,66 @@ def export_checks(device, out_root: Path, tmp: Path, enz, cora, score, card) -> 
     return checks
 
 
+def k2_nan_cases(captured, temp, device) -> list:
+    """(name, Ẑ, validity, τ) of k2_nan_phase: each of the poisoned step's
+    NT-Xent inputs that holds a NaN, and NTXENT_NAN_ROWS rows with one valid
+    or one invalid row made NaN on the card."""
+    cases = [(f"poisoned step, {zhat.shape[0]} rows", zhat, vv, temp)
+             for zhat, vv in captured if torch.isnan(zhat).any()]
+    zhat, vv, tau, _, _ = ntxent_inputs(np.random.default_rng(SEED + 7), NTXENT_NAN_ROWS,
+                                        device)
+    for kind in ("valid", "invalid"):
+        row = int((vv > 0).nonzero()[0]) if kind == "valid" else int((vv == 0).nonzero()[0])
+        poisoned = zhat.clone()
+        poisoned[row] = poisoned[row] * 0 / 0
+        cases.append((f"{NTXENT_NAN_ROWS} rows, NaN {kind} row {row}", poisoned, vv, tau))
+    return cases
+
+
+def nan_agreement(got, want, tol: float) -> dict:
+    """NaN in the same entries; the finite ones within tol of max |want|."""
+    same = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+    fin = torch.isfinite(want)
+    scale = float(want[fin].abs().max()) if fin.any() else 1.0
+    err = float((got[fin] - want[fin]).abs().max()) / scale if fin.any() else 0.0
+    return {"nan": int(torch.isnan(got).sum()), "plain_nan": int(torch.isnan(want).sum()),
+            "same_nan": same, "max_rel_err": err, "ok": same and err <= tol}
+
+
 def k2_nan_phase(captured, temp, card) -> None:
-    """K2-fwd against its plain version on each NT-Xent input (Ẑ, validity)
-    of check (d)'s poisoned step that holds a NaN: a valid row's loss must
-    be NaN where the plain version's is. Run after the artifacts path's
-    counts are read, as the kernel phases run outside every path's, so its
-    launches are not the path's. A check named in KNOWN_FAILURES must fail,
-    and must be taken out of it once it passes."""
+    """K2-fwd and K2-bwd against their plain versions on Ẑ that holds NaN
+    (k2_nan_cases): NaN exactly where the plain version's is, in loss, mx,
+    den and dẐ. Run after the artifacts path's counts are read, as the
+    kernel phases run outside every path's, so its launches are not the
+    path's. A check named in KNOWN_FAILURES must fail, and must be taken out
+    of it once it passes."""
     from gnn_pretraining_tpu_torch.ops import ntxent
 
-    rows = []
-    for zhat, vv in captured:
-        if not torch.isnan(zhat).any():
-            continue
-        kernel = ntxent.ntxent_fwd(zhat, vv, temp)[0]
-        plain = ntxent.ntxent_fwd_reference(zhat, vv, temp)[0]
-        on = vv > 0
-        rows.append({"rows": zhat.shape[0], "nan_rows": int(torch.isnan(zhat).any(1).sum()),
-                     "valid_rows": int(on.sum()),
-                     "kernel_finite_valid_rows": int(torch.isfinite(kernel[on]).sum()),
-                     "plain_finite_valid_rows": int(torch.isfinite(plain[on]).sum()),
-                     "nan_where_plain_is": bool(torch.equal(torch.isnan(kernel[on]),
-                                                            torch.isnan(plain[on])))})
-    checks = {"d k2_fwd_nan_where_plain_is_nan": bool(rows)
-              and all(r["nan_where_plain_is"] for r in rows)}
+    fwd_rows, bwd_rows = [], []
+    for name, zhat, vv, tau in k2_nan_cases(captured, temp, temp.device):
+        kernel = ntxent.ntxent_fwd(zhat, vv, tau)
+        plain = ntxent.ntxent_fwd_reference(zhat, vv, tau)
+        fwd = {out: nan_agreement(k, p, NTXENT_LOSS_TOL)
+               for out, k, p in zip(("loss", "mx", "den"), kernel, plain)}
+        g = vv.clone()
+        dz = ntxent.ntxent_bwd(zhat, vv, tau, kernel[1], kernel[2], g)
+        dz_plain = ntxent.ntxent_bwd_reference(zhat, vv, tau, plain[1], plain[2], g)
+        torch.cuda.synchronize()
+        nan_bits = zhat[torch.isnan(zhat)][:1].view(torch.int32).tolist()
+        fwd_rows.append({"case": name, "rows": zhat.shape[0],
+                         "nan_rows": int(torch.isnan(zhat).any(1).sum()),
+                         "valid_rows": int((vv > 0).sum()),
+                         "nan_bits": [f"{b & 0xffffffff:#010x}" for b in nan_bits], **fwd})
+        bwd_rows.append({"case": name, **nan_agreement(dz, dz_plain, NTXENT_GRAD_TOL)})
+    checks = {"d k2_fwd_nan_where_plain_is_nan": bool(fwd_rows) and all(
+                  r[out]["ok"] for r in fwd_rows for out in ("loss", "mx", "den")),
+              "d k2_bwd_nan_where_plain_is_nan": bool(bwd_rows) and all(
+                  r["ok"] for r in bwd_rows)}
     failed = [name for name, ok in checks.items() if not ok]
     unexpected = [name for name in failed if name not in KNOWN_FAILURES]
     stale = [name for name in checks if name in KNOWN_FAILURES and name not in failed]
-    emit({"phase": "artifacts", "part": "d K2-fwd on the poisoned step's NaN inputs",
-          "card": card, "rows": rows, "checks": checks,
+    emit({"phase": "artifacts", "part": "d K2 on Ẑ that holds NaN", "card": card,
+          "forward": fwd_rows, "backward": bwd_rows, "checks": checks,
           "known_failures": {name: KNOWN_FAILURES[name] for name in failed
                              if name in KNOWN_FAILURES},
           "ok": not unexpected and not stale})
@@ -2117,6 +2203,360 @@ def drivers_phase(processed_dir: Path, resume_dir: Path, out_root: Path) -> None
           "seconds": time.perf_counter() - t0, "checks": checks, "ok": ok})
     if not ok:
         raise AssertionError(f"the drivers phase failed its checks: {checks}")
+
+
+SWEEP_REQUESTER = """
+import json, sys, time
+from gnn_pretraining_tpu_torch.utils import runtime
+wait_s, poll = float(sys.argv[1]), float(sys.argv[2])
+deadline = time.monotonic() + wait_s
+while not runtime.SWEEP_PIDFILE.exists():        # the first child runs its cell
+    if time.monotonic() > deadline:
+        sys.exit("no child recorded itself")
+    time.sleep(0.05)
+child = int(runtime.SWEEP_PIDFILE.read_text().split()[0])
+t = time.monotonic()
+got = runtime.acquire_chip(wait_s=wait_s, poll=poll)
+waited = time.monotonic() - t
+paused = runtime.PAUSED_FILE.read_text().split()
+quiet = []
+for _ in range(10):                              # ~1 s: no child starts while parked
+    quiet.append(not runtime.SWEEP_PIDFILE.exists())
+    time.sleep(0.1)
+state = runtime._proc_stat(child)
+runtime.release_chip()
+print(json.dumps({"acquired": got, "waited_s": waited, "paused": paused, "first_child": child,
+                  "first_child_state": None if state is None else state[0],
+                  "no_child_while_parked": all(quiet)}), flush=True)
+"""
+
+SHARD_PROCESS = """
+import sys
+from gnn_pretraining_tpu_torch import config
+config.ALL_SCHEMES, config.SEEDS = {schemes!r}, {seeds!r}
+from gnn_pretraining_tpu_torch import run_pretrain
+sys.exit(run_pretrain.main(sys.argv[1:]))
+"""
+
+
+def mem_total_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) / 2**20
+    raise RuntimeError("no MemTotal in /proc/meminfo")
+
+
+def captured_main(main, argv):
+    """main(argv) with this process's prints captured (children print to the
+    inherited descriptors); -> (exit code, printed text)."""
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = main(argv)
+    print(printed.getvalue(), end="", flush=True)
+    return rc, printed.getvalue()
+
+
+def child_env(**extra) -> dict:
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(HERE), env.get("PYTHONPATH")) if p)
+    env.update(extra)
+    return env
+
+
+def isolate_checks(resume_dir: Path, sweep_root: Path, runtime_dir: Path, card) -> dict:
+    """(a) and (b): an --isolate sweep on the card, parked for a requester at
+    its chunk boundary; its --resume pass; a dead requester's file."""
+    import os
+    import types
+
+    from gnn_pretraining_tpu_torch import config, run_pretrain
+    from gnn_pretraining_tpu_torch.utils import runtime
+
+    argv = [*SWEEP_ISOLATE, "--processed_dir", str(resume_dir), "--out_root", str(sweep_root)]
+    requester = subprocess.Popen(
+        [sys.executable, "-c", SWEEP_REQUESTER, str(SWEEP_WAIT_S), str(SWEEP_POLL)],
+        stdout=subprocess.PIPE, text=True, env=child_env(TMPDIR=str(runtime_dir)))
+    children, resolved = [], []
+    real_call = subprocess.call
+
+    def recording_call(cmd, **kwargs):
+        children.append(cmd)
+        return real_call(cmd, **kwargs)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    try:
+        with mock.patch.multiple(subprocess, call=recording_call), \
+                mock.patch.multiple(run_pretrain, resolve_device=lambda d: resolved.append(d)):
+            rc, printed = captured_main(run_pretrain.main, argv)
+            first = list(children)
+            rc_resume, printed_resume = captured_main(run_pretrain.main, [*argv, "--resume"])
+        out, _ = requester.communicate(timeout=SWEEP_WAIT_S)
+    finally:
+        if requester.poll() is None:
+            requester.kill()
+            requester.wait()
+    seconds = time.perf_counter() - t
+    orchestrator_bytes = max(torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()) - base
+    report = json.loads(out.splitlines()[-1]) if requester.returncode == 0 else {}
+    child_s = [float(m) for m in re.findall(r"child rc=0 \(([0-9.]+)s\)", printed)]
+    args = types.SimpleNamespace(out_root=str(sweep_root), epochs=1, aggregation="pallas",
+                                 processed_dir=str(resume_dir))
+    done = {c: run_pretrain.cell_completed(
+        config.PretrainConfig(exp_name=c.split("_")[0], seed=int(c.split("_")[1])), args)
+        for c in SWEEP_ISOLATE_CELLS}
+    # A pause request whose owner is gone: discarded, the sweep not parked.
+    gone = subprocess.Popen([sys.executable, "-c", "pass"])
+    gone.wait()
+    runtime.PAUSE_FILE.write_text(f"{gone.pid} 1")
+    t_dead = time.perf_counter()
+    runtime.honor_pause("dead requester")
+    dead_s = time.perf_counter() - t_dead
+    checks = {
+        "a_children": rc == 0 and len(first) == 2 and all(
+            c[1:3] == ["-m", "gnn_pretraining_tpu_torch.run_pretrain"] for c in first)
+        and len(child_s) == 2 and all(done.values()),
+        "a_resume_starts_no_child": rc_resume == 0 and len(children) == 2
+        and printed_resume.count("all complete, skipping child") == 2,
+        "a_orchestrator_no_card": orchestrator_bytes == 0 and not resolved,
+        "b_parked_at_boundary": report.get("acquired") is True
+        and report.get("paused", [None])[0] == str(os.getpid())
+        and report.get("paused", [])[-1:] == ["2-2"]
+        and "sweep parked at cells 2-2" in printed and "sweep resuming" in printed,
+        "b_no_child_while_parked": report.get("no_child_while_parked") is True
+        and report.get("first_child_state") in (None, "Z"),
+        "b_dead_requester_discarded": not runtime.PAUSE_FILE.exists() and dead_s < 1.0,
+    }
+    emit({"phase": "sweep", "part": "a isolate, b pause", "card": card, "cells": done,
+          "child_seconds": child_s, "orchestrator_seconds": seconds,
+          "orchestrator_card_bytes": orchestrator_bytes, "requester": report,
+          "children": [c[3:] for c in first], "checks": checks})
+    return checks
+
+
+def reclaim_checks(runtime_dir: Path, card) -> dict:
+    """(c): a recorded sleeping process is reclaimed; a pidfile whose start
+    time is not the live process's is removed and nothing is signalled."""
+    from gnn_pretraining_tpu_torch.utils import runtime
+
+    path = runtime_dir / "reclaim.pid"
+    recorded = subprocess.Popen(
+        [sys.executable, "-c", "import sys, time\n"
+         "from gnn_pretraining_tpu_torch.utils.runtime import write_pidfile\n"
+         "write_pidfile(sys.argv[1]); time.sleep(120)", str(path)], env=child_env())
+    stale = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(120)"])
+    try:
+        deadline = time.monotonic() + 60
+        while not path.exists() and time.monotonic() < deadline and recorded.poll() is None:
+            time.sleep(0.05)
+        t = time.perf_counter()
+        reclaimed = runtime.reclaim_chip(path, wait_s=10.0)
+        reclaim_s = time.perf_counter() - t
+        recorded_rc = recorded.wait(timeout=30)
+        stale_path = runtime_dir / "stale.pid"
+        stale_path.write_text(f"{stale.pid} {runtime._proc_stat(stale.pid)[1] + 1}")
+        signalled = runtime.reclaim_chip(stale_path, wait_s=5.0)
+        stale_alive = stale.poll() is None
+    finally:
+        for proc in (recorded, stale):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    checks = {"c_reclaimed": reclaimed and recorded_rc == -15 and not path.exists(),
+              "c_stale_not_signalled": not signalled and stale_alive
+              and not stale_path.exists()}
+    emit({"phase": "sweep", "part": "c reclaim", "card": card, "reclaim_seconds": reclaim_s,
+          "recorded_rc": recorded_rc, "checks": checks})
+    return checks
+
+
+def rss_checks(processed_dir: Path, resume_dir: Path, rss_root: Path, card) -> dict:
+    """(d): host RSS and the card's peak memory after each cell of
+    an in-process sweep, and whether maybe_clear_caches fired."""
+    from gnn_pretraining_tpu_torch import config, run_finetune, run_pretrain
+    from gnn_pretraining_tpu_torch.utils import runtime
+
+    rows = []
+
+    def recorder(driver):
+        def record():
+            fired = runtime.maybe_clear_caches()
+            torch.cuda.synchronize()
+            rows.append({"rss_gib": runtime.rss_gb(),
+                         "peak_allocated_mib": torch.cuda.max_memory_allocated() / 2**20,
+                         "peak_reserved_mib": torch.cuda.max_memory_reserved() / 2**20,
+                         "allocated_mib": torch.cuda.memory_allocated() / 2**20,
+                         "cleared": fired})
+            torch.cuda.reset_peak_memory_stats()
+            return fired
+        return mock.patch.multiple(driver, maybe_clear_caches=record)
+
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = runtime.rss_gb()
+    t = time.perf_counter()
+    (schemes, seeds), (domains, ft_seeds) = RSS_PRETRAIN, RSS_FINETUNE
+    with recorder(run_pretrain), mock.patch.multiple(config, ALL_SCHEMES=schemes, SEEDS=seeds):
+        rc_pre, _ = captured_main(run_pretrain.main, [
+            "--sweep", "--epochs", "1", "--processed_dir", str(resume_dir),
+            "--out_root", str(rss_root)])
+    with recorder(run_finetune), mock.patch.multiple(config, FINETUNE_DOMAINS=domains,
+                                         FINETUNE_STRATEGIES=("full_finetune",),
+                                         FINETUNE_SCHEMES=("b1",), SEEDS=ft_seeds):
+        rc_ft, _ = captured_main(run_finetune.main, [
+            "--sweep", "--epochs", "1", "--processed_dir", str(processed_dir),
+            "--out_root", str(rss_root)])
+    names = ([f"{e}_{s}" for e in schemes for s in seeds]
+             + [f"{d}_full_finetune_b1_{s}" for d in domains for s in ft_seeds])
+    for name, row in zip(names, rows):
+        row["cell"] = name
+    checks = {"d_cells": rc_pre == 0 and rc_ft == 0 and len(rows) == len(names) >= 6}
+    emit({"phase": "sweep", "part": "d host RSS", "card": card, "mem_total_gib": mem_total_gib(),
+          "clear_threshold_gib": runtime.CLEAR_CACHES_RSS_GB, "rss_gib_before": before,
+          "cells": rows, "seconds": time.perf_counter() - t, "checks": checks})
+    return checks
+
+
+def shard_checks(resume_dir: Path, shard_root: Path, runtime_dir: Path, card) -> dict:
+    """(e): two processes of a launcher on the one card split SHARD_GRID into
+    grid[0::2] and grid[1::2]."""
+    schemes, seeds = SHARD_GRID
+    grid = [f"{e}_{s}" for e in schemes for s in seeds]
+    code = SHARD_PROCESS.format(schemes=schemes, seeds=seeds)
+    argv = ["--sweep", "--epochs", "1", "--processed_dir", str(resume_dir),
+            "--out_root", str(shard_root)]
+    logs = [shard_root / f"rank{rank}.log" for rank in (0, 1)]
+    shard_root.mkdir(parents=True)
+    t = time.perf_counter()
+    procs = []
+    for rank, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, *argv], stdout=f, stderr=subprocess.STDOUT,
+                env=child_env(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK="0",
+                              TMPDIR=str(runtime_dir))))
+    for proc in procs:
+        proc.wait(timeout=600)
+    seconds = time.perf_counter() - t
+    outs = [log.read_text() for log in logs]
+    ran = [re.findall(r"^\[\d+/\d+\] (\S+): best_val=", out, re.M) for out in outs]
+    for out in outs:
+        print(out, end="", flush=True)
+    checks = {"e_split": [p.returncode for p in procs] == [0, 0]
+              and ran == [grid[0::2], grid[1::2]] and sorted(ran[0] + ran[1]) == sorted(grid)}
+    emit({"phase": "sweep", "part": "e launcher shards", "card": card, "grid": grid,
+          "ran": ran, "seconds": seconds, "checks": checks})
+    return checks
+
+
+def exporter_checks(device, processed_dir: Path, out_root: Path, sweep_root: Path,
+                    art: Path, card) -> dict:
+    """(f): export_artifacts.main(argv) on the earlier phases' checkpoints; the
+    manifest's sha256 and bytes recomputed from the files; each serving
+    artifact replayed on the card against its eager model."""
+    import hashlib
+
+    from gnn_pretraining_tpu_torch import export_artifacts, make_embedding_fn, make_serving_fn
+    from gnn_pretraining_tpu_torch import serving
+
+    common = ["--artifacts_dir", str(art), "--processed_dir", str(processed_dir),
+              "--platforms", ARTIFACT_PLATFORMS]
+    t = time.perf_counter()
+    rc = [captured_main(export_artifacts.main, ["--out_root", str(out_root), "--seeds", "42",
+                                                *common])[0],
+          captured_main(export_artifacts.main, ["--out_root", str(sweep_root), "--seeds", "84",
+                                                *common])[0]]
+    export_s = time.perf_counter() - t
+    manifest = json.loads((art / "MANIFEST.json").read_text())
+    files_ok = all(
+        (art / k).stat().st_size == e["bytes"]
+        and hashlib.sha256((art / k).read_bytes()).hexdigest() == e["sha256"]
+        for k, e in manifest.items())
+    replay = {}
+    rng = np.random.default_rng(SEED + 11)
+    for key, entry in sorted(manifest.items()):
+        if not key.startswith("serving/"):
+            continue
+        embed = bool(entry.get("embed"))
+        domain = entry.get("domain") or Path(key).stem.rsplit("_", 1)[0]
+        example = export_artifacts.serving_example(domain, processed_dir, embed=embed)
+        model = export_artifacts.load_model(entry["source"], domain, "coo", embed, device)
+        if embed:
+            eager, names = make_embedding_fn(model)
+        else:
+            eager, names = make_serving_fn(model)
+            if model.task_type == "graph_classification":
+                eager = eager(example["num_graphs"])
+        for k in ("score_senders", "score_receivers"):
+            if k in example:
+                example[k] = rng.integers(0, entry["bucket"]["num_nodes"],
+                                          example[k].shape).astype(np.int32)
+        inputs = [torch.from_numpy(np.asarray(example[n])).to(device) for n in names]
+        with torch.no_grad():
+            ref = eager(*inputs)
+            got = serving.load_artifact(art / key)(*inputs)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        replay[key] = {"max_rel_err": err, "ok": bool(got.device.type == "cuda"
+                                                      and torch.isfinite(got).all()
+                                                      and err <= ARTIFACT_TOL)}
+    want = {"transfer/backbone_s2_42.msgpack", "transfer/backbone_s5_42.msgpack",
+            "transfer/backbone_b2_84.msgpack", "transfer/backbone_s2_84.msgpack",
+            "serving/ENZYMES_b2.pt2", "serving/Cora_NC_b2.pt2", "serving/Cora_LP_b2.pt2",
+            "serving/ENZYMES_embed_b2.pt2"}
+    checks = {"f_exported": rc == [0, 0] and want <= set(manifest),
+              "f_manifest_is_the_files": files_ok,
+              "f_replayed": bool(replay) and all(r["ok"] for r in replay.values())}
+    emit({"phase": "sweep", "part": "f exporter", "card": card, "export_seconds": export_s,
+          "artifacts": {k: e["bytes"] for k, e in manifest.items()}, "replay": replay,
+          "tol": ARTIFACT_TOL, "checks": checks})
+    return checks
+
+
+def sweep_phase(device, processed_dir: Path, resume_dir: Path, out_root: Path, tmp: Path,
+                card) -> None:
+    """Checks (a)-(f) of the module docstring's sweep phase, with the
+    runtime's files in a directory of their own (the children's TMPDIR)."""
+    import os
+
+    from gnn_pretraining_tpu_torch.utils import runtime
+
+    t0 = time.perf_counter()
+    runtime_dir = tmp / "runtime"
+    runtime_dir.mkdir(parents=True)
+    files = {name: runtime_dir / getattr(runtime, name).name
+             for name in ("SWEEP_PIDFILE", "PAUSE_FILE", "PAUSED_FILE")}
+    tmpdir = os.environ.get("TMPDIR")
+    os.environ["TMPDIR"] = str(runtime_dir)       # the isolate children's runtime files
+    try:
+        with mock.patch.multiple(runtime, **files):
+            checks = {**isolate_checks(resume_dir, tmp / "isolate", runtime_dir, card),
+                      **reclaim_checks(runtime_dir, card),
+                      **rss_checks(processed_dir, resume_dir, tmp / "rss", card),
+                      **shard_checks(resume_dir, tmp / "shards", runtime_dir, card),
+                      **exporter_checks(device, processed_dir, out_root, tmp / "isolate",
+                                        tmp / "exported", card)}
+    finally:
+        if tmpdir is None:
+            os.environ.pop("TMPDIR", None)
+        else:
+            os.environ["TMPDIR"] = tmpdir
+    failed = [name for name, ok in checks.items() if not ok]
+    emit({"phase": "sweep", "seconds": time.perf_counter() - t0, "card": card,
+          "failed": failed, "ok": not failed})
+    if failed:
+        raise AssertionError(f"the sweep phase failed its checks: {failed}")
 
 
 def store_digest(path: Path) -> dict:
@@ -2830,10 +3270,12 @@ def main() -> int:
             device, resume_dir, out_root)))
         _, drivers = run_path(lambda: clocked("drivers", lambda: drivers_phase(
             processed_dir, resume_dir, out_root)))
+        _, sweep = run_path(lambda: clocked("sweep", lambda: sweep_phase(
+            device, processed_dir, resume_dir, out_root, Path(tmp) / "sweep", card)))
         _, data = run_path(lambda: clocked("data", lambda: data_phase(Path(tmp), out_root)))
         paths = {"serving": serving, "train": train, "pretrain": pretrain,
                  "pretrain_tasks": pretrain_tasks, "csr": csr, "resume": resume,
-                 "drivers": drivers, "data": data}
+                 "drivers": drivers, "sweep": sweep, "data": data}
         # The kernel rows read these dicts; the artifacts path joins them below.
         launches = {name: {path: counts[name] for path, counts in paths.items()}
                     for name in kernels}

@@ -61,6 +61,11 @@
 //     the chunks' partials [chunks][R][d] in chunk order by the last block.
 //   * Ragged rows and columns are zero-filled as staged and masked; columns
 //     past R are -inf in the forward and 0 in H.
+//   * NaN goes where the plain version puts it: the hi/lo split keeps a NaN
+//     (tf32_round), and every running max is max.NaN, so a NaN in a valid,
+//     unmasked entry of S makes its row's max, denominator and loss NaN,
+//     and a NaN in H or Zhat reaches dZhat through the products. A masked
+//     entry is -1e30 and a column past R -inf whatever Zhat holds there.
 // Each warp reloads its rows' A fragments for every tile (4 warps share
 // them): the shared-memory loads, 12 per 3 MMAs, bound the tile loop now.
 // Wider loads (a permuted k order), fewer reloads, or wgmma with TMA would
@@ -105,9 +110,22 @@ struct Smem {
 constexpr int SMEM_BYTES = sizeof(Smem);        // 103936: 2 blocks per SM
 
 // x rounded to tf32 (10 mantissa bits), to nearest with ties away from
-// zero as cvt.rna does: the low 13 bits of the result are 0.
+// zero as cvt.rna does: the low 13 bits of the result are 0. A NaN or an
+// infinity is returned as it is: the card's NaN is 0x7fffffff, which the
+// rounding would carry into the sign bit and mask to -0, so that a NaN in
+// Zhat or in H vanished from S and from dZhat.
 __device__ __forceinline__ float tf32_round(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  const uint32_t u = __float_as_uint(x);
+  return (u & 0x7f800000u) == 0x7f800000u ? x
+                                          : __uint_as_float((u + 0x1000u) & 0xffffe000u);
+}
+
+// max(a, b), NaN if either is (PTX max.NaN, sm_80 and later), as
+// torch.max and jnp.maximum give it; fmaxf returns the other operand.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
@@ -318,7 +336,7 @@ ntxent_fwd_kernel(const float* __restrict__ zs, const float4* __restrict__ aux,
                                                                 : acc[2 * h + q] / tau;
         if (gc == at.pos_col[h]) pos[h] += v[q];
       }
-      const float m_new = fmaxf(mx[h], fmaxf(v[0], v[1]));
+      const float m_new = max_nan(mx[h], max_nan(v[0], v[1]));
       den[h] = den[h] * expf(mx[h] - m_new) + (expf(v[0] - m_new) + expf(v[1] - m_new));
       mx[h] = m_new;
     }
@@ -333,7 +351,7 @@ ntxent_fwd_kernel(const float* __restrict__ zs, const float4* __restrict__ aux,
     for (int o = 1; o < 4; o <<= 1) {
       const float m_o = __shfl_xor_sync(0xffffffffu, mx[h], o);
       const float d_o = __shfl_xor_sync(0xffffffffu, den[h], o);
-      const float m = fmaxf(mx[h], m_o);
+      const float m = max_nan(mx[h], m_o);
       den[h] = den[h] * expf(mx[h] - m) + d_o * expf(m_o - m);
       mx[h] = m;
       pos[h] += __shfl_xor_sync(0xffffffffu, pos[h], o);
@@ -354,7 +372,7 @@ ntxent_fwd_kernel(const float* __restrict__ zs, const float4* __restrict__ aux,
 #pragma unroll
     for (int w = 1; w < WARPS_N; ++w) {
       const float m_w = sm.stats[0][w][threadIdx.x];
-      const float m_new = fmaxf(m, m_w);
+      const float m_new = max_nan(m, m_w);
       d = d * expf(m - m_new) + sm.stats[1][w][threadIdx.x] * expf(m_w - m_new);
       m = m_new;
       p += sm.stats[2][w][threadIdx.x];
@@ -385,7 +403,7 @@ ntxent_fwd_kernel(const float* __restrict__ zs, const float4* __restrict__ aux,
                                : kMasked;
     }
 #pragma unroll
-    for (int q = 0; q < 8; ++q) m = fmaxf(m, m_k[q]);
+    for (int q = 0; q < 8; ++q) m = max_nan(m, m_k[q]);
   }
   for (int k0 = 0; k0 < chunks; k0 += 8) {
     float m_k[8], d_k[8], p_k[8];

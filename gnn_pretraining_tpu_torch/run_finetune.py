@@ -18,10 +18,16 @@ pretrain run died part-way. A cell that raises is printed with its traceback
 and the sweep goes on; ``main`` returns 2 when any cell failed or was
 skipped by ``pretrain_ready``.
 
-Runs on the card unless ``--device cpu``, resolved once before the grid;
-writes under ``config.OUTPUT_DIR`` (``outputs/torch/``) unless
-``--out_root``. Not ported: ``--isolate``, the chip lock and pause hooks,
-``--dp`` and ``--partition``.
+``--isolate N`` with ``--sweep`` or ``--domain_sweep`` runs the grid as
+child processes of N cells each, as ``run_pretrain`` does (a child of a
+domain sweep gets ``--domain_sweep`` in place of ``--sweep``, so that its
+slice indexes the same grid); an in-process sweep writes the pidfile and
+clears the caches past the RSS bound, as there.
+
+Runs on the card unless ``--device cpu`` (under a launcher,
+``cuda:LOCAL_RANK``), resolved once before the grid; writes under
+``config.OUTPUT_DIR`` (``outputs/torch/``) unless ``--out_root``. Not
+ported: ``--dp`` and ``--partition`` (the multi-device slice).
 """
 
 from __future__ import annotations
@@ -37,10 +43,20 @@ import torch
 
 from gnn_pretraining_tpu_torch import config
 from gnn_pretraining_tpu_torch.finetune.finetune import finetune
-from gnn_pretraining_tpu_torch.run_pretrain import add_common_args, metrics_root, shard_grid
+from gnn_pretraining_tpu_torch.run_pretrain import (
+    add_common_args,
+    child_flags,
+    launcher_device,
+    metrics_root,
+    run_isolated,
+    shard_grid,
+    shard_label,
+    slice_grid,
+)
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
 from gnn_pretraining_tpu_torch.utils.fidelity import cell_completed as summary_completed
 from gnn_pretraining_tpu_torch.utils.fidelity import fidelity_block
+from gnn_pretraining_tpu_torch.utils.runtime import maybe_clear_caches, write_pidfile
 
 
 def cell_completed(cfg: config.FinetuneConfig, args) -> bool:
@@ -75,7 +91,8 @@ def full_grid() -> List[Tuple[str, str, str, int]]:
 def run_grid(grid, args, device: torch.device) -> list:
     """Fine-tune the cells of ``grid`` in order; returns the ones that failed
     or were skipped for want of a complete pretrain."""
-    print(f"Fine-tuning sweep: {len(grid)} runs (shard {args.shard_index}/{args.num_shards})",
+    write_pidfile()         # lets a job that needs the card find this sweep
+    print(f"Fine-tuning sweep: {len(grid)} runs (shard {shard_label(args)})",
           flush=True)
     failed = []
     for i, (domain, strategy, scheme, seed) in enumerate(grid):
@@ -104,6 +121,8 @@ def run_grid(grid, args, device: torch.device) -> list:
             print(f"{tag}: FAILED", flush=True)
         # As in run_pretrain.run_sweep: free the finished cell before the next.
         gc.collect()
+        if maybe_clear_caches():
+            print(f"{tag}: cleared caches (host RSS bound)", flush=True)
     print(f"\n{len(failed)} failed runs: {failed}" if failed else "\nAll runs completed.",
           flush=True)
     return failed
@@ -134,8 +153,21 @@ def main(argv=None) -> int:
                      "--finetune_strategy --pretrained_scheme --seed")
     else:
         grid = [(args.domain_name, args.finetune_strategy, args.pretrained_scheme, args.seed)]
-    grid = shard_grid(grid, args)
-    device = resolve_device(args.device)
+    if args.isolate < 0:
+        parser.error("--isolate takes a positive number of cells per child")
+    grid = slice_grid(shard_grid(grid, args), args)
+    if args.isolate and (args.sweep or args.domain_sweep):
+        flags = child_flags(args)
+        if args.domain_sweep and not args.sweep:
+            flags[0:1] = ["--domain_sweep", args.domain_sweep]
+
+        def incomplete(cell):
+            cfg = config.FinetuneConfig(domain_name=cell[0], finetune_strategy=cell[1],
+                                        pretrained_scheme=cell[2], seed=cell[3])
+            return None if cell_completed(cfg, args) else cfg.run_name
+        return run_isolated("gnn_pretraining_tpu_torch.run_finetune", grid, args, flags,
+                            incomplete)
+    device = resolve_device(launcher_device(args))
     return 2 if run_grid(grid, args, device) else 0
 
 

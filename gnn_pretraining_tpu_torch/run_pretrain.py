@@ -1,6 +1,6 @@
 """Pretraining sweep driver of the port.
 
-    python -m gnn_pretraining_tpu_torch.run_pretrain --sweep [--resume]
+    python -m gnn_pretraining_tpu_torch.run_pretrain --sweep [--resume] [--isolate N]
     python -m gnn_pretraining_tpu_torch.run_pretrain --exp_name s2 --seed 42
 
 The counterpart of the JAX package's ``run_pretrain.py``, with the same
@@ -8,20 +8,36 @@ flags. ``--sweep`` runs the 24-cell grid (each scheme of
 ``config.ALL_SCHEMES`` under each seed of ``config.SEEDS``) in one process,
 cell after cell; ``--exp_name --seed`` runs one cell.
 ``--shard_index i --num_shards n`` keeps ``grid[i::n]`` (``--num_shards 24
---shard_index 12`` is s2 under seed 42). ``--resume`` skips a cell whose
+--shard_index 12`` is s2 under seed 42). Without them a process started by a
+multi-process launcher (``torchrun``: ``WORLD_SIZE``, ``RANK``) keeps
+``grid[RANK::WORLD_SIZE]`` and runs on ``cuda:LOCAL_RANK``; no process group
+is made, each process runs its own cells. ``--resume`` skips a cell whose
 summary carries a completed ``fidelity/*`` block matching the run asked for
 (``cell_completed``), and passes ``resume=True`` to ``pretrain()``, so a cell
 that was cut short carries on from its train-state file. A cell that raises
 is printed with its traceback and the sweep goes on; ``main`` returns 2 when
 any cell failed.
 
+``--sweep --isolate N`` runs the grid as child processes of N cells each
+(``python -m gnn_pretraining_tpu_torch.run_pretrain`` with the same flags
+and a slice of the grid), one after another, so that the host memory of a
+cell goes back to the system with its child. The orchestrator touches no
+card: between two children, where no process of the sweep holds the card,
+it parks while a job has asked for the card (``utils.runtime.acquire_chip``);
+with ``--resume`` it starts no child for a chunk that is complete; a child
+that fails is logged and the pass goes on; ``main`` returns 1 when a cell is
+still incomplete after the pass. Without shard flags an orchestrator runs
+the whole grid. An in-process sweep records itself in the port's pidfile
+(``utils.runtime.write_pidfile``), so such a job can find it, and after each
+cell clears the caches once host RSS crosses its bound
+(``utils.runtime.maybe_clear_caches``).
+
 Runs on the card unless ``--device cpu``, resolved once before the grid.
 Writes under ``config.OUTPUT_DIR`` (``outputs/torch/``) unless
 ``--out_root``. A production cell on the card (``--epochs`` at
 ``config.PRETRAIN_EPOCHS``, no ``--out_root``) adds its wall time and the
 card's name and power limit to ``analysis/results/pretrain_timings_torch.json``.
-Not ported: ``--isolate``, the chip lock and pause hooks, ``--dp``,
-``--debug_nans`` and the multi-host default of the shard flags.
+Not ported: ``--dp`` (the multi-device slice).
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ from gnn_pretraining_tpu_torch.pretrain.pretrain import pretrain
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
 from gnn_pretraining_tpu_torch.utils.fidelity import cell_completed as summary_completed
 from gnn_pretraining_tpu_torch.utils.fidelity import fidelity_block
+from gnn_pretraining_tpu_torch.utils.runtime import honor_pause, maybe_clear_caches, write_pidfile
 
 # The JAX package's pretrain_timings.json beside it holds TPU timings.
 TIMINGS_FILE = config.REPO_ROOT / "analysis" / "results" / "pretrain_timings_torch.json"
@@ -70,21 +87,116 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--no_wandb", action="store_true",
                         help="the default; accepted so that a JAX package "
                              "command line runs unchanged")
+    parser.add_argument("--isolate", type=int, default=0, metavar="N",
+                        help="with a sweep: run the grid as child processes of "
+                             "N cells each (host memory goes back with each)")
+    parser.add_argument("--grid_start", type=int, default=0,
+                        help=argparse.SUPPRESS)      # an --isolate child's slice
+    parser.add_argument("--grid_count", type=int, default=0,
+                        help=argparse.SUPPRESS)
+
+
+def launcher_shard():
+    """(shards, index) that a multi-process launcher gives this process
+    (``WORLD_SIZE``, ``RANK``, as ``torchrun`` sets them), else (1, 0)."""
+    return int(os.environ.get("WORLD_SIZE", "1")), int(os.environ.get("RANK", "0"))
+
+
+def shard_label(args) -> str:
+    """The shard a sweep runs, for its log: the flags', or the launcher's."""
+    if args.num_shards or args.isolate or args.grid_count or "WORLD_SIZE" not in os.environ:
+        return f"{args.shard_index}/{args.num_shards}"
+    n, i = launcher_shard()
+    return f"{i}/{n} of the launcher"
 
 
 def shard_grid(grid, args):
-    """``grid[i::n]`` for ``--shard_index i --num_shards n``, else the whole
-    grid. One flag without the other is rejected: two machines started with
-    only ``--num_shards 2`` would both run shard 0."""
+    """``grid[i::n]`` for ``--shard_index i --num_shards n``, else the
+    launcher's shard (``launcher_shard``). One flag without the other is
+    rejected: two machines started with only ``--num_shards 2`` would both
+    run shard 0. An ``--isolate`` orchestrator without the flags runs the
+    whole grid, and so do its children, whose slices index that grid."""
     if (args.num_shards > 0) != (args.shard_index is not None):
         raise SystemExit("--shard_index and --num_shards must be given together "
-                         "(or neither, for the whole grid)")
-    if not args.num_shards:
+                         "(or neither, for the launcher's shard or the whole grid)")
+    if args.num_shards:
+        n, i = args.num_shards, args.shard_index
+    elif args.isolate or args.grid_count:
         return grid
-    if not 0 <= args.shard_index < args.num_shards:
-        raise SystemExit(f"--shard_index {args.shard_index} out of range for "
-                         f"{args.num_shards} shards")
-    return grid[args.shard_index::args.num_shards]
+    else:
+        n, i = launcher_shard()
+    if not 0 <= i < max(n, 1):
+        raise SystemExit(f"--shard_index {i} out of range for {n} shards")
+    return grid[i::n] if n > 1 else grid
+
+
+def slice_grid(grid, args):
+    """The slice ``[grid_start, grid_start + grid_count)`` of the sharded
+    grid that an ``--isolate`` child runs, else the grid. Slicing after
+    sharding keeps a child's grid aligned with its parent's."""
+    if args.grid_count:
+        return grid[args.grid_start:args.grid_start + args.grid_count]
+    return grid
+
+
+def launcher_device(args):
+    """``--device``, else ``cuda:LOCAL_RANK`` under a launcher, else None
+    (the card)."""
+    if args.device is None and "LOCAL_RANK" in os.environ:
+        return f"cuda:{int(os.environ['LOCAL_RANK'])}"
+    return args.device
+
+
+def child_flags(args) -> list:
+    """The flags an ``--isolate`` child gets: the parent's, verbatim."""
+    flags = ["--sweep", "--aggregation", args.aggregation]
+    if args.resume:
+        flags.append("--resume")
+    if args.epochs is not None:
+        flags += ["--epochs", str(args.epochs)]
+    for name in ("out_root", "processed_dir", "device"):
+        if getattr(args, name) is not None:
+            flags += [f"--{name}", str(getattr(args, name))]
+    if args.wandb:
+        flags.append("--wandb")
+    if args.num_shards:
+        flags += ["--shard_index", str(args.shard_index), "--num_shards", str(args.num_shards)]
+    return flags
+
+
+def run_isolated(module: str, grid, args, flags, incomplete) -> int:
+    """Run ``grid`` as child processes (``python -m module``) of
+    ``args.isolate`` cells each, one after another; returns 1 when a cell is
+    still incomplete afterwards (``incomplete(cell)`` names it), else 0.
+
+    Children write to this process's stdout and stderr. A child that fails
+    is logged and the pass goes on: its cells are retried by the next
+    ``--resume`` pass. Nothing here touches the card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(config.REPO_ROOT), env.get("PYTHONPATH")) if p)
+    total = len(grid)
+    for start in range(0, total, args.isolate):
+        count = min(args.isolate, total - start)
+        cells = f"cells {start + 1}-{start + count}"
+        if args.resume and not any(map(incomplete, grid[start:start + count])):
+            print(f"[isolate] {cells}/{total}: all complete, skipping child", flush=True)
+            continue
+        # No child is alive here: the card can be lent out (acquire_chip).
+        honor_pause(cells)
+        print(f"[isolate] {cells}/{total}", flush=True)
+        t0 = time.time()
+        rc = subprocess.call([sys.executable, "-m", module, *flags, "--grid_start", str(start),
+                              "--grid_count", str(count)], env=env)
+        print(f"[isolate] {cells}/{total}: child rc={rc} ({time.time() - t0:.1f}s)"
+              f"{' — continuing' if rc else ''}", flush=True)
+    missing = [name for name in map(incomplete, grid) if name]
+    if missing:
+        print(f"\n{len(missing)} cells incomplete after this pass: "
+              f"{missing[:10]}{' ...' if len(missing) > 10 else ''}", flush=True)
+        return 1
+    print("\nAll runs completed.", flush=True)
+    return 0
 
 
 def metrics_root(args) -> Path:
@@ -126,7 +238,8 @@ def run_sweep(grid, args, device: torch.device) -> list:
     # a scratch out_root stays out of it.
     card = (card_line(device) if device.type == "cuda" and args.out_root is None
             and args.epochs == config.PRETRAIN_EPOCHS else None)
-    print(f"Pretraining sweep: {len(grid)} runs (shard {args.shard_index}/{args.num_shards})",
+    write_pidfile()         # lets a job that needs the card find this sweep
+    print(f"Pretraining sweep: {len(grid)} runs (shard {shard_label(args)})",
           flush=True)
     failed = []
     for i, (exp, seed) in enumerate(grid):
@@ -152,6 +265,8 @@ def run_sweep(grid, args, device: torch.device) -> list:
         # cycles (closures that refer to themselves); free them before the
         # next cell allocates its own.
         gc.collect()
+        if maybe_clear_caches():
+            print(f"{tag}: cleared caches (host RSS bound)", flush=True)
     print(f"\n{len(failed)} failed runs: {failed}" if failed else "\nAll runs completed.",
           flush=True)
     return failed
@@ -171,8 +286,16 @@ def main(argv=None) -> int:
         parser.error("provide --sweep or both --exp_name and --seed")
     else:
         grid = [(args.exp_name, args.seed)]
-    grid = shard_grid(grid, args)
-    device = resolve_device(args.device)
+    if args.isolate < 0:
+        parser.error("--isolate takes a positive number of cells per child")
+    grid = slice_grid(shard_grid(grid, args), args)
+    if args.isolate and args.sweep:
+        def incomplete(cell):
+            cfg = config.PretrainConfig(exp_name=cell[0], seed=cell[1])
+            return None if cell_completed(cfg, args) else cfg.run_name
+        return run_isolated("gnn_pretraining_tpu_torch.run_pretrain", grid, args,
+                            child_flags(args), incomplete)
+    device = resolve_device(launcher_device(args))
     return 2 if run_sweep(grid, args, device) else 0
 
 

@@ -76,6 +76,8 @@ def test_port_modules_import_no_jax():
             "gnn_pretraining_tpu_torch.data.synthetic",
             "gnn_pretraining_tpu_torch.utils.torch_import",
             "gnn_pretraining_tpu_torch.export_model",
+            "gnn_pretraining_tpu_torch.export_artifacts",
+            "gnn_pretraining_tpu_torch.utils.runtime",
             "gnn_pretraining_tpu_torch.utils.profiling"} <= set(modules)
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

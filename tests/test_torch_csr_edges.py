@@ -10,7 +10,8 @@ graphs with duplicated edges added:
     dropped, duplicates summed, rows and tile rows without edges, ``pad_to``);
   * ``csr_edges_reference`` (K3's plain version) equals the tile oracle
     ``csr_matvec_reference`` in every mode within 1e-6 of max |ref|: both
-    round alike, only the order of f32 sums differs;
+    round alike, only the order of f32 sums differs
+    (``test_torch_csr_edges_oracle.py`` and ``_oracle_large.py``);
   * ``BlockCSR.to`` moves the edge CSRs and leaves the tiles where they are.
 
 No JAX here: the JAX side of both descriptions is held in
@@ -90,23 +91,6 @@ def test_edge_csr_is_the_dense_matrix_of_the_tiles(seed, n, e, masked, pad_to, t
     assert bsr.nnz == np.count_nonzero(want) and bsr.nnz == bsr.indices_t.shape[0]
     if n == 200:                                # 100 edges: rows without any
         assert (np.diff(bsr.indptr.numpy()) == 0).any()
-
-
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("seed,n,e,masked,pad_to", GRAPHS)
-def test_edges_reference_equals_the_tile_oracle(seed, n, e, masked, pad_to, mode):
-    s, r, m = graph(seed, n, e, masked)
-    bsr = spmm_csr.build_block_csr(s, r, m, n, pad_to=pad_to)
-    h = torch.from_numpy(np.random.default_rng(seed + 100).normal(
-        size=(n, 40)).astype(np.float32))
-    for edges, tiles in (((bsr.indptr, bsr.indices, bsr.data),
-                          (bsr.vals, bsr.rows, bsr.cols)),
-                         ((bsr.indptr_t, bsr.indices_t, bsr.data_t),
-                          (bsr.vals_t, bsr.rows_t, bsr.cols_t))):
-        got = spmm_csr.csr_edges_reference(*edges, h, 0.3, mode)
-        want = spmm_csr.csr_matvec_reference(*tiles, h, 0.3, mode, n)
-        assert got.shape == want.shape == (n, 40) and got.dtype == torch.float32
-        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
 def test_to_moves_the_edges_and_no_tiles():

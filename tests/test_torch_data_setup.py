@@ -1,12 +1,15 @@
 """The port's offline preprocessing against the JAX package's, on the CPU.
 
-The port's parsers, calibrated generators, scikit-learn-free splits and
-``data.setup.main`` are held against the JAX package's on the same inputs:
-the raw fixtures in ``tests/fixtures/{tu_raw,planetoid_raw}`` (flat and in
-the PyG-nested layout) and the seeded synthetic fallback at scale 0.05. The
-stores must have the same keys, dtypes and ``meta__*`` values and equal
-arrays; the split replicas must equal scikit-learn's ``StratifiedShuffleSplit``
-and ``ShuffleSplit`` (imported here only), raising where they raise.
+``data.setup.main`` of both packages on the raw fixtures in
+``tests/fixtures/{tu_raw,planetoid_raw}`` (in the PyG-nested layout; ENZYMES
+and Cora): the same files, stores with the same keys, dtypes and ``meta__*``
+values and equal arrays, the goldens of ``tests/test_parsers.py``, and
+``data_fidelity`` reading the same block. The helpers here serve the other
+files of the port's preprocessing tests: the synthetic fallback at scale
+0.05 (``test_torch_data_setup_synthetic.py``), the parsers and the CLI
+(``test_torch_data_parsers.py``), the generators
+(``test_torch_data_generators.py``) and the split replicas
+(``test_torch_split_replicas.py``).
 """
 
 from __future__ import annotations
@@ -19,14 +22,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from sklearn.model_selection import ShuffleSplit, StratifiedShuffleSplit
 
-from gnn_pretraining_tpu.data import parsers as jax_parsers
 from gnn_pretraining_tpu.data import setup as jax_setup
-from gnn_pretraining_tpu.data import synthetic as jax_synthetic
 from gnn_pretraining_tpu.utils import fidelity as jax_fidelity
 from gnn_pretraining_tpu_torch import config
-from gnn_pretraining_tpu_torch.data import parsers, setup, synthetic
+from gnn_pretraining_tpu_torch.data import setup
 from gnn_pretraining_tpu_torch.utils import fidelity
 
 # Small CPU shapes: one intra-op thread per test process. The default, a
@@ -70,105 +70,26 @@ def assert_same_arrays(got, want):
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("kind", ["tu", "planetoid"])
-@pytest.mark.parametrize("layout", ["flat", "nested", "missing"])
-def test_parsers_equal_jax(tmp_path, kind, layout):
-    name, fixture = {"tu": ("ENZYMES", "tu_raw"), "planetoid": ("Cora", "planetoid_raw")}[kind]
-    raw = {"flat": lambda: FIXTURES / fixture, "nested": lambda: nested_raw(tmp_path),
-           "missing": lambda: tmp_path}[layout]()
-    port_fn, jax_fn = {"tu": (parsers.parse_tu_dataset, jax_parsers.parse_tu_dataset),
-                       "planetoid": (parsers.parse_planetoid, jax_parsers.parse_planetoid)}[kind]
-    if layout == "missing":
-        for fn in (port_fn, jax_fn):
-            with pytest.raises(FileNotFoundError):
-                fn(raw, name)
-        return
-    assert_same_arrays(port_fn(raw, name), jax_fn(raw, name))
+MODES = {"raw": lambda root: dict(raw_dir=nested_raw(root / "raw"), only=["ENZYMES", "Cora"]),
+         "synthetic": lambda root: dict(raw_dir=root / "empty", synthetic_scale=SCALE)}
 
 
-def _labels(rng, counts):
-    return rng.permutation(np.repeat(np.arange(len(counts)) * 3 + 1, counts))
-
-
-# (labels or a sample count for the plain split, test share). None of the
-# labelled cases raises unless its id says so.
-SPLIT_CASES = {
-    "2 classes balanced": ((15, 15), 0.2),
-    "3 classes uneven": ((20, 9, 8), 0.1),
-    "5 classes odd": ((31, 7, 25, 19, 19), 0.5),
-    "6 classes ENZYMES": ((100,) * 6, 0.2),
-    "4 classes remainder ties": ((13, 13, 13, 22), 0.2),
-    "6 classes 2 each": ((2,) * 6, 0.5),
-    "raises: singleton class": ((12, 1, 9), 0.2),
-    "raises: test slots < classes": ((5,) * 6, 0.1),
-    "plain 30": (30, 0.1),
-    "plain 411": (411, 0.1),
-    "plain 7": (7, 0.5),
-    "raises: plain empty train": (1, 0.5),
-}
-
-
-@pytest.mark.parametrize("case", list(SPLIT_CASES))
-def test_split_replicas_equal_sklearn(case):
-    spec, share = SPLIT_CASES[case]
-    seed = config.PREPROCESS_RANDOM_SEED
-    if isinstance(spec, int):
-        port = lambda: setup.shuffle_split(spec, share, seed)  # noqa: E731
-        ref = lambda: next(ShuffleSplit(1, test_size=share,  # noqa: E731
-                                        random_state=seed).split(np.arange(spec)))
-    else:
-        y = _labels(np.random.default_rng(len(case)), spec)
-        port = lambda: setup.stratified_shuffle_split(y, share, seed)  # noqa: E731
-        ref = lambda: next(StratifiedShuffleSplit(  # noqa: E731
-            1, test_size=share, random_state=seed).split(np.arange(len(y)), y))
-    if case.startswith("raises"):
-        for fn in (port, ref):
-            with pytest.raises(ValueError):
-                fn()
-        return
-    assert_same_arrays(port(), ref())
-
-
-def test_generator_constants_equal_jax():
-    import dataclasses
-
-    assert {k: dataclasses.astuple(v) for k, v in synthetic.TU_SPECS.items()} == \
-        {k: dataclasses.astuple(v) for k, v in jax_synthetic.TU_SPECS.items()}
-    for name in ("TU_SIGNAL", "PLANETOID_WPC", "PLANETOID_MIX", "PLANETOID_FLIP",
-                 "PLANETOID_SPECS"):
-        assert getattr(synthetic, name) == getattr(jax_synthetic, name), name
-    # The stand-in stores' sizes come from the same table.
-    assert synthetic.PRETRAIN_SIZES == {
-        "MUTAG": (188, 17.9, 2.2), "PROTEINS": (1113, 39.1, 3.7),
-        "NCI1": (4110, 29.9, 2.2), "ENZYMES": (600, 32.6, 3.8)}
-
-
-@pytest.mark.parametrize("name,homophily",
-                         [(n, h) for n in config.TUDATASETS for h in (0.0, 0.5)]
-                         + [(n, None) for n in config.PLANETOID_DATASETS])
-def test_generators_equal_jax(name, homophily):
-    if homophily is None:
-        assert_same_arrays(synthetic.generate_planetoid(name, seed=3, scale=SCALE),
-                           jax_synthetic.generate_planetoid(name, seed=3, scale=SCALE))
-    else:
-        kw = dict(seed=3, scale=SCALE, homophily=homophily)
-        assert_same_arrays(synthetic.generate_tu_dataset(name, **kw),
-                           jax_synthetic.generate_tu_dataset(name, **kw))
+def make_stores(tmp_path_factory, mode):
+    """(mode, package) -> the directory ``main()`` of that package wrote:
+    on the nested raw fixtures (ENZYMES and Cora) or on the synthetic
+    fallback at scale 0.05 (every dataset)."""
+    root = tmp_path_factory.mktemp(f"setup_{mode}")
+    kw = MODES[mode](root)
+    out = {}
+    for pkg, main in (("port", setup.main), ("jax", jax_setup.main)):
+        out[mode, pkg] = root / mode / pkg
+        quiet(main, processed_dir=out[mode, pkg], **kw)
+    return out
 
 
 @pytest.fixture(scope="module")
 def made(tmp_path_factory):
-    """``main()`` of each package on the nested raw fixtures (ENZYMES and
-    Cora) and on the synthetic fallback at scale 0.05 (every dataset)."""
-    root = tmp_path_factory.mktemp("setup")
-    raw = nested_raw(root / "raw")
-    out = {}
-    for mode, kw in (("raw", dict(raw_dir=raw, only=["ENZYMES", "Cora"])),
-                     ("synthetic", dict(raw_dir=root / "empty", synthetic_scale=SCALE))):
-        for pkg, main in (("port", setup.main), ("jax", jax_setup.main)):
-            out[mode, pkg] = root / mode / pkg
-            quiet(main, processed_dir=out[mode, pkg], **kw)
-    return out
+    return make_stores(tmp_path_factory, "raw")
 
 
 STORES = ([("raw", s) for s in ("ENZYMES", "Cora_NC", "Cora_LP")]
@@ -176,14 +97,14 @@ STORES = ([("raw", s) for s in ("ENZYMES", "Cora_NC", "Cora_LP")]
           + [("synthetic", f"{p}_{t}") for p in config.PLANETOID_DATASETS for t in ("NC", "LP")])
 
 
-@pytest.mark.parametrize("mode", ["raw", "synthetic"])
+@pytest.mark.parametrize("mode", ["raw"])
 def test_main_writes_the_same_files(made, mode):
     names = sorted(p.name for p in made[mode, "port"].iterdir())
     assert names == sorted(p.name for p in made[mode, "jax"].iterdir())
     assert names == sorted(f"{s}.npz" for m, s in STORES if m == mode)
 
 
-@pytest.mark.parametrize("mode,store", STORES)
+@pytest.mark.parametrize("mode,store", [c for c in STORES if c[0] == "raw"])
 def test_main_stores_equal_jax(made, mode, store):
     with np.load(made[mode, "port"] / f"{store}.npz") as got, \
             np.load(made[mode, "jax"] / f"{store}.npz") as want:
@@ -226,10 +147,13 @@ def test_port_holds_the_jax_goldens(made, case):
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("mode,domains", [
+FIDELITY_CASES = [
     ("raw", ("ENZYMES",)), ("raw", ("ENZYMES", "Cora_NC")),
     ("synthetic", config.PRETRAIN_TUDATASETS), ("synthetic", ("Cora_NC",)),
-    ("synthetic", ("PTC_MR", "Cora_LP")), ("synthetic", ("ENZYMES", "absent"))])
+    ("synthetic", ("PTC_MR", "Cora_LP")), ("synthetic", ("ENZYMES", "absent"))]
+
+
+@pytest.mark.parametrize("mode,domains", [c for c in FIDELITY_CASES if c[0] == "raw"])
 def test_data_fidelity_reads_the_same_block(made, mode, domains):
     blocks = [f(made[mode, pkg], domains) for pkg in ("port", "jax")
               for f in (fidelity.data_fidelity, jax_fidelity.data_fidelity)]
@@ -239,18 +163,3 @@ def test_data_fidelity_reads_the_same_block(made, mode, domains):
                              "calibration": 0.0}
 
 
-def test_cli_flags_reach_main(tmp_path):
-    argv = ["--processed_dir", str(tmp_path / "out"), "--raw_dir", str(tmp_path / "none"),
-            "--synthetic_scale", str(SCALE), "--synthetic_seed", "3",
-            "--synthetic_homophily", "0.5", "--only", "MUTAG", "Cora"]
-    quiet(setup.main, **vars(setup.parse_args(argv)))
-    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
-        "Cora_LP.npz", "Cora_NC.npz", "MUTAG.npz"]
-    want = quiet(jax_setup.process_tu_dataset, "MUTAG", tmp_path / "none", SCALE, 3, 0.5)
-    want.save(tmp_path / "want.npz")
-    with np.load(tmp_path / "out" / "MUTAG.npz") as got, np.load(tmp_path / "want.npz") as w:
-        assert sorted(got.files) == sorted(w.files)
-        assert str(got["meta__homophily"]) == "0.5"
-        for k in w.files:
-            assert got[k].dtype == w[k].dtype
-            np.testing.assert_array_equal(got[k], w[k], err_msg=k)

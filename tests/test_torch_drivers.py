@@ -6,16 +6,14 @@ through ``main(argv)`` with ``--device cpu`` on a tiny seeded ENZYMES store
 packages point into a temporary directory, the JAX package's at
 ``<tmp>/outputs`` and the port's at ``<tmp>/outputs/torch`` (the layout of
 the repository), and the runs that pass no ``--out_root`` write under the
-port's. Held here:
+port's. Held here (the grids, shards and per-cell behaviour with the cells
+replaced by recorders are in ``test_torch_driver_grids.py`` and
+``test_torch_driver_cells.py``):
 
-  * the grids and the shard selection equal the JAX scripts';
-  * one shard flag without the other is rejected, and without a card the
-    drivers raise before the first cell;
   * a one-cell pretrain shard (``--num_shards 24 --shard_index 12``, s2
     under seed 42) writes a summary that the port's ``cell_completed``
     accepts, and the same command under ``--resume`` does not call
     ``pretrain()``;
-  * a cell that raises is listed, the sweep goes on, and the exit code is 2;
   * ``run_finetune`` skips a cell from s2, whose pretrain ran 1 epoch of
     ``config.PRETRAIN_EPOCHS``, and exits 2; a single cell under
     ``--resume`` is skipped once complete;
@@ -23,18 +21,21 @@ port's. Held here:
     metrics each gives alone (rtol 1e-6, times and rates aside);
   * nothing lands under the JAX package's ``pretrain/``, ``finetune/`` or
     ``metrics/``, and the JAX ``run_pretrain.cell_completed`` stays False
-    for the port's cell (it turns True once the summary is copied there).
+    for the port's cell (it turns True once the summary is copied there);
+  * ``--isolate 1`` over two b1 cells of ``--domain_sweep ENZYMES`` (5
+    layers: the children take the real config) runs each cell in a child
+    ``python -m gnn_pretraining_tpu_torch.run_finetune`` with the parent's
+    flags and ``--domain_sweep`` kept, while the orchestrator makes no
+    ``torch.cuda`` call and resolves no device; the same command under
+    ``--resume`` starts no child.
 """
 
 from __future__ import annotations
 
-import contextlib
-import importlib.util
-import io
 import json
 import shutil
+import subprocess
 import types
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,45 +44,13 @@ import torch
 from gnn_pretraining_tpu import config as jax_config
 from gnn_pretraining_tpu_torch import config, run_finetune, run_pretrain
 from gnn_pretraining_tpu_torch.data.synthetic import synthetic_pretrain_store
+from gnn_pretraining_tpu_torch.utils import runtime
+from torch_driver_helpers import FT_EPOCHS, SHARD, call, cell, jax_run_pretrain
 
 # Small CPU shapes: one intra-op thread per test process. The default, a
 # thread per core in every pytest-xdist worker, spends most of its time
 # spinning and starves the other workers.
 torch.set_num_threads(1)
-
-REPO = Path(__file__).resolve().parent.parent
-SHARD = ["--num_shards", "24", "--shard_index", "12"]          # s2 under seed 42
-FT_EPOCHS = 2
-
-
-def _load(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-jax_run_pretrain = _load("jax_run_pretrain", REPO / "run_pretrain.py")
-jax_run_finetune = _load("jax_run_finetune", REPO / "run_finetune.py")
-
-
-def call(main, argv, **spies):
-    """``main(argv)`` with stdout captured and each ``name=module`` of
-    ``spies`` having its ``name`` replaced by a recorder that must not run;
-    -> (exit code, stdout, recorded calls)."""
-    calls = []
-    out = io.StringIO()
-    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
-        for name, module in spies.items():
-            mp.setattr(module, name, lambda *a, **k: calls.append((a, k)))
-        rc = main(argv)
-    return rc, out.getvalue(), calls
-
-
-def cell(strategy, scheme):
-    return ["--domain_name", "ENZYMES", "--finetune_strategy", strategy,
-            "--pretrained_scheme", scheme, "--seed", "42", "--epochs", str(FT_EPOCHS)]
-
 
 def summary_test_metrics(root, run_name):
     summary = json.loads((root / "metrics" / config.FINETUNE_PROJECT_NAME
@@ -101,6 +70,7 @@ def runs(tmp_path_factory):
     base = ["--device", "cpu", "--processed_dir", str(stores)]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(config, "GNN_NUM_LAYERS", 1)
+        mp.setattr(runtime, "SWEEP_PIDFILE", tmp / "sweep.pid")
         for c, side in ((jax_config, "jax"), (config, "port")):
             mp.setitem(c.PRETRAIN_DOMAINS, "s2", ("ENZYMES",))
             mp.setattr(c, "OUTPUT_DIR", roots[side])
@@ -135,77 +105,6 @@ def args_of(runs, **kw):
     """The parsed flags of a driver run on the store, ``kw`` overriding."""
     return types.SimpleNamespace(**{"out_root": None, "epochs": 1, "aggregation": "pallas",
                                     "processed_dir": runs["stores"], **kw})
-
-
-@pytest.mark.parametrize("n,i", [(24, 12), (5, 3), (1, 0), (3, 0)])
-def test_shard_grid_equals_jax(n, i):
-    grid = [(e, s) for e in config.ALL_SCHEMES for s in config.SEEDS]
-    args = types.SimpleNamespace(num_shards=n, shard_index=i)
-    assert run_pretrain.shard_grid(grid, args) == jax_run_pretrain.shard_grid(grid, args)
-    assert grid[12] == ("s2", 42)
-
-
-def test_finetune_grid_equals_jax():
-    assert run_finetune.full_grid() == jax_run_finetune.full_grid()
-    assert len(run_finetune.full_grid()) == 324
-
-
-@pytest.mark.parametrize("driver", [run_pretrain, run_finetune], ids=["pretrain", "finetune"])
-@pytest.mark.parametrize("flag", [["--num_shards", "2"], ["--shard_index", "0"]],
-                         ids=["num_shards", "shard_index"])
-def test_one_shard_flag_without_the_other_is_rejected(driver, flag):
-    with pytest.raises(SystemExit, match="together"):
-        driver.main(["--sweep", *flag, "--device", "cpu"])
-
-
-@pytest.mark.parametrize("driver,entry,argv", [
-    (run_pretrain, "pretrain", ["--sweep"]),
-    (run_finetune, "finetune", cell("full_finetune", "b1"))], ids=["pretrain", "finetune"])
-def test_without_a_card_the_driver_raises_before_any_cell(monkeypatch, driver, entry, argv):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(driver, entry, lambda *a, **k: pytest.fail("a cell ran"))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        driver.main(argv)
-
-
-def test_a_failing_cell_is_listed_and_the_sweep_goes_on(monkeypatch, capsys):
-    ran = []
-
-    def pretrain(cfg, **kwargs):
-        ran.append(cfg.run_name)
-        if cfg.exp_name == "b2":
-            raise ValueError("the b2 cell fails")
-        return {"best_val_total": 1.0}
-
-    monkeypatch.setattr(run_pretrain, "pretrain", pretrain)
-    assert run_pretrain.main(["--sweep", "--num_shards", "12", "--shard_index", "0",
-                              "--device", "cpu"]) == 2
-    out = capsys.readouterr()
-    assert ran == ["b2_42", "s2_42"]
-    assert "b2_42: FAILED" in out.out and "s2_42: best_val=1.0000" in out.out
-    assert "ValueError: the b2 cell fails" in out.err
-
-
-@pytest.mark.parametrize("extra,recorded", [([], True), (["--epochs", "2"], False),
-                                            (["--out_root", "elsewhere"], False)],
-                         ids=["production", "fewer_epochs", "out_root"])
-def test_only_production_cells_on_the_card_record_their_time(monkeypatch, tmp_path, extra,
-                                                            recorded):
-    card = "NVIDIA H100 80GB HBM3, 700.00 W"
-    monkeypatch.setattr(run_pretrain, "TIMINGS_FILE", tmp_path / "timings.json")
-    monkeypatch.setattr(run_pretrain, "card_line", lambda device: card)
-    monkeypatch.setattr(run_pretrain, "resolve_device", lambda device: torch.device("cuda"))
-    monkeypatch.setattr(run_pretrain, "pretrain", lambda cfg, **kw: {"best_val_total": 1.0})
-    assert run_pretrain.main(["--exp_name", "s2", "--seed", "42", *extra]) == 0
-    assert (tmp_path / "timings.json").exists() == recorded
-    if recorded:
-        entry = json.loads((tmp_path / "timings.json").read_text())["s2_42"]
-        assert entry["card"] == card and entry["seconds"] >= 0
-
-
-def test_the_timing_record_is_the_ports_own():
-    """Beside the JAX package's record of TPU timings, never in it."""
-    assert run_pretrain.TIMINGS_FILE == REPO / "analysis" / "results" / "pretrain_timings_torch.json"
 
 
 def test_one_cell_pretrain_shard_writes_a_completed_summary(runs):
@@ -273,3 +172,76 @@ def test_jax_cell_completed_stays_false_for_a_port_cell(runs, tmp_path):
     (tmp_path / "metrics" / name).parent.mkdir(parents=True)
     shutil.copy(runs["roots"]["port"] / "metrics" / name, tmp_path / "metrics" / name)
     assert jax_run_pretrain.cell_completed(jcfg, args_of(runs, out_root=str(tmp_path)))
+
+
+ISOLATE = ["--domain_sweep", "ENZYMES", "--num_shards", "27", "--shard_index", "0",
+           "--epochs", "1", "--isolate", "1"]
+
+
+@pytest.fixture(scope="module")
+def isolated(runs):
+    """The isolate sweep and its --resume pass, each child's command line
+    recorded, with every torch.cuda entry and resolve_device made to fail
+    in this process (the children are other processes)."""
+    out_root = runs["tmp"] / "isolated"
+    argv = [*ISOLATE, "--device", "cpu", "--processed_dir", str(runs["stores"]),
+            "--out_root", str(out_root)]
+    children, touched = [], []
+    real_call = subprocess.call
+
+    def recording_call(cmd, **kwargs):
+        children.append(cmd)
+        return real_call(cmd, **kwargs)
+
+    def touch(name):
+        return lambda *a, **k: touched.append(name)
+
+    with pytest.MonkeyPatch.context() as mp:
+        # The children's pidfiles and threads: the test's own, one thread.
+        mp.setenv("TMPDIR", str(runs["tmp"]))
+        mp.setenv("OMP_NUM_THREADS", "1")
+        mp.setattr(run_pretrain.subprocess, "call", recording_call)
+        mp.setattr(run_finetune, "resolve_device", touch("resolve_device"))
+        for name in ("is_available", "device_count", "current_device", "init",
+                     "synchronize", "get_device_properties", "memory_allocated"):
+            mp.setattr(torch.cuda, name, touch(f"torch.cuda.{name}"))
+        first = call(run_finetune.main, argv)
+        first_children = list(children)
+        resumed = call(run_finetune.main, [*argv, "--resume"])
+    return {"first": first, "children": first_children, "resumed": resumed,
+            "resumed_children": children[len(first_children):], "touched": touched,
+            "argv": argv, "out_root": out_root, "stores": str(runs["stores"])}
+
+
+def test_isolate_children_are_the_ports_driver_with_the_parents_flags(isolated):
+    rc, out, _ = isolated["first"]
+    assert rc == 0 and "All runs completed." in out
+    children = isolated["children"]
+    assert len(children) == 2
+    for start, cmd in enumerate(children):
+        assert cmd[1:3] == ["-m", "gnn_pretraining_tpu_torch.run_finetune"]
+        flags = cmd[3:]
+        assert flags[:2] == ["--domain_sweep", "ENZYMES"] and "--sweep" not in flags
+        assert flags[-4:] == ["--grid_start", str(start), "--grid_count", "1"]
+        for flag in ("--epochs", "--device", "--processed_dir", "--out_root",
+                     "--shard_index", "--num_shards"):
+            i = isolated["argv"].index(flag)
+            assert flags[flags.index(flag) + 1] == isolated["argv"][i + 1], flag
+        assert f"[isolate] cells {start + 1}-{start + 1}/2: child rc=0" in out
+    args = types.SimpleNamespace(out_root=str(isolated["out_root"]), epochs=1,
+                                 aggregation="pallas", processed_dir=isolated["stores"])
+    for strategy in ("full_finetune", "linear_probe"):
+        cfg = config.FinetuneConfig(domain_name="ENZYMES", finetune_strategy=strategy,
+                                    pretrained_scheme="b1", seed=42)
+        assert run_finetune.cell_completed(cfg, args), strategy
+
+
+def test_isolate_orchestrator_touches_no_card(isolated):
+    assert isolated["touched"] == []
+
+
+def test_isolate_resume_starts_no_child(isolated):
+    rc, out, _ = isolated["resumed"]
+    assert rc == 0 and isolated["resumed_children"] == []
+    assert out.count("all complete, skipping child") == 2
+

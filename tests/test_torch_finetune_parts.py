@@ -1,7 +1,8 @@
 """The fine-tune path's building blocks against the JAX package's, on the CPU.
 
-Losses, similarity ops, top-k, hard-negative mining, metrics, the fine-tune
-loaders, ``GraphStore.save``, the msgpack writer and the dropout source: the
+Losses, similarity ops, top-k, hard-negative mining and the dropout source
+(the metrics and the msgpack writer are in ``test_torch_finetune_metrics.py``,
+the loaders and ``GraphStore.save`` in ``test_torch_finetune_loaders.py``): the
 same numpy-seeded inputs go through ``gnn_pretraining_tpu`` and
 ``gnn_pretraining_tpu_torch``. Tolerances are stated at each comparison;
 where both sides do the same f32 arithmetic it is rtol=1e-6, and array-valued
@@ -10,7 +11,6 @@ data (batches, stores) must be equal.
 
 from __future__ import annotations
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -19,22 +19,15 @@ import pytest
 import torch
 
 from gnn_pretraining_tpu import config as jax_config
-from gnn_pretraining_tpu.data import batch as jax_batch
-from gnn_pretraining_tpu.data import loaders as jax_loaders
-from gnn_pretraining_tpu.data import setup as data_setup
-from gnn_pretraining_tpu.finetune import metrics as jax_metrics
 from gnn_pretraining_tpu.finetune import mining as jax_mining
 from gnn_pretraining_tpu.ops import sddmm as jax_sddmm
 from gnn_pretraining_tpu.ops.topk import exact_top_k as jax_top_k
-from gnn_pretraining_tpu.utils import checkpoint as jax_checkpoint
 from gnn_pretraining_tpu.utils import losses as jax_losses
-from gnn_pretraining_tpu_torch.data import batch, loaders
-from gnn_pretraining_tpu_torch.finetune import metrics, mining
+from gnn_pretraining_tpu_torch.finetune import mining
 from gnn_pretraining_tpu_torch.models.gnn import Dropout, DropoutSource
 from gnn_pretraining_tpu_torch.ops import sddmm
 from gnn_pretraining_tpu_torch.ops.topk import exact_top_k
-from gnn_pretraining_tpu_torch.utils import checkpoint, losses
-from gnn_pretraining_tpu_torch.utils._msgpack import packb, unpackb
+from gnn_pretraining_tpu_torch.utils import losses
 
 # Small CPU shapes: one intra-op thread per test process. The default, a
 # thread per core in every pytest-xdist worker, spends most of its time
@@ -194,198 +187,10 @@ def test_mining_needs_a_generator_for_the_remainder():
 # -- metrics --------------------------------------------------------------------
 
 
-def metric_cases():
-    rng = np.random.default_rng(0)
-    y2 = rng.integers(0, 2, 80)
-    p2 = rng.random(80)
-    p2_ties = np.round(p2, 1)
-    probs2 = np.stack([1 - p2, p2], 1)
-    y6 = rng.integers(0, 6, 90)
-    p6 = rng.random((90, 6))
-    p6 /= p6.sum(1, keepdims=True)
-    nonfinite = probs2.copy()
-    nonfinite[3] = np.nan
-    return {
-        "binary": ("PTC_MR", y2, probs2),
-        "binary_ties": ("Cora_LP", y2, np.stack([1 - p2_ties, p2_ties], 1)),
-        "binary_single_class": ("Cora_LP", np.ones(40, np.int64), probs2[:40]),
-        "binary_nonfinite": ("PTC_MR", y2, nonfinite),
-        "multiclass": ("ENZYMES", y6, p6),
-        "multiclass_missing_class": ("ENZYMES", np.where(y6 == 5, 0, y6), p6),
-        "multiclass_single_class": ("ENZYMES", np.zeros(20, np.int64), p6[:20]),
-    }
-
-
-@pytest.mark.parametrize("case", sorted(metric_cases()))
-def test_batch_and_global_metrics_equal_jax(case):
-    domain, y, probs = metric_cases()[case]
-    preds = probs.argmax(1)
-    want = jax_metrics.compute_batch_metrics(domain, y, preds, probs, 0.7, "val")
-    got = metrics.compute_batch_metrics(domain, y, preds, probs, 0.7, "val")
-    assert got.keys() == want.keys()
-    for k in want:
-        np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=1e-12, err_msg=k)
-    # sklearn runs on the JAX side only; the port's closed form must equal it.
-    want = jax_metrics.compute_global_auc(domain, y, probs, "test")
-    got = metrics.compute_global_auc(domain, y, probs, "test")
-    np.testing.assert_allclose(got["test/auc_global"], want["test/auc_global"],
-                               rtol=1e-12, atol=1e-12)
-
-
-def test_multiclass_auc_label_outside_columns_is_zero():
-    """The JAX function indexes a column that is not there (IndexError);
-    the port records 0.0, as for every case sklearn refuses."""
-    y = np.array([0, 1, 3])
-    probs = np.full((3, 3), 1 / 3)
-    assert metrics.multiclass_ovr_auc(y, probs) == 0.0
-    with pytest.raises(IndexError):
-        jax_metrics.multiclass_ovr_auc(y, probs)
-
-
-def test_aggregated_and_run_level_metrics_equal_jax():
-    domain, y, probs = metric_cases()["multiclass"]
-    batches_j, batches_t = [], []
-    for lo, hi in ((0, 32), (32, 64), (64, 90)):
-        args = (domain, y[lo:hi], probs[lo:hi].argmax(1), probs[lo:hi], 1.0 + lo, "test")
-        batches_j.append(jax_metrics.compute_batch_metrics(*args))
-        batches_t.append(metrics.compute_batch_metrics(*args))
-    assert (metrics.compute_validation_metrics(batches_t, 3)
-            == jax_metrics.compute_validation_metrics(batches_j, 3))
-    want = jax_metrics.compute_test_metrics(batches_j, 5, 2, 0.0, 10, 4, train_steps=7,
-                                            train_wall=2.0, edges_per_step=3.0)
-    got = metrics.compute_test_metrics(batches_t, 5, 2, 0.0, 10, 4, train_steps=7,
-                                       train_wall=2.0, edges_per_step=3.0)
-    assert got.keys() == want.keys()
-    assert all(got[k] == want[k] for k in want if k != "test/training_time")
-    lrs = {"backbone": 1e-4, "head": 1e-3}
-    want = jax_metrics.compute_training_metrics(2, 9, 0.5, lrs, domain, y, probs.argmax(1),
-                                                probs, 0.0, 1.5)
-    got = metrics.compute_training_metrics(2, 9, 0.5, lrs, domain, y, probs.argmax(1),
-                                           probs, 0.0, 1.5)
-    assert got.keys() == want.keys()
-    assert all(got[k] == want[k] for k in want if k != "train/system/time_per_step")
-
-
 # -- stores and loaders -----------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def processed_dir(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("stores")
-    data_setup.main(processed_dir=tmp, raw_dir=tmp / "raw", synthetic_scale=0.06,
-                    only=["ENZYMES", "PTC_MR", "Cora"])
-    return tmp
-
-
-def assert_batches_equal(got, want):
-    for f in dataclasses.fields(want):
-        np.testing.assert_array_equal(getattr(got, f.name).numpy(),
-                                      np.asarray(getattr(want, f.name)), err_msg=f.name)
-
-
-def test_graph_store_save_round_trips_through_both_packages(processed_dir, tmp_path):
-    for name in ("ENZYMES", "Cora_LP"):
-        store = batch.GraphStore.load(processed_dir / f"{name}.npz")
-        store.save(tmp_path / f"{name}.npz")
-        for loader in (batch.GraphStore.load, jax_batch.GraphStore.load):
-            back = loader(tmp_path / f"{name}.npz")
-            want = jax_batch.GraphStore.load(processed_dir / f"{name}.npz")
-            assert back.name == want.name and back.meta == want.meta
-            assert back.splits.keys() == want.splits.keys()
-            for k in want.splits:
-                np.testing.assert_array_equal(back.splits[k], want.splits[k])
-            for f in ("node_features", "edge_index", "node_offsets", "edge_offsets",
-                      "y", "graph_properties", "node_y"):
-                a, b = getattr(back, f), getattr(want, f)
-                assert (a is None) == (b is None)
-                if a is not None:
-                    np.testing.assert_array_equal(a, b)
-
-
-@pytest.mark.parametrize("domain,batch_size", [("ENZYMES", 8), ("PTC_MR", 32)])
-@pytest.mark.parametrize("split", ["train", "val"])
-def test_gc_loader_batches_equal_jax(processed_dir, domain, batch_size, split):
-    want = jax_loaders.create_finetune_arrays(domain, split, batch_size, processed_dir)
-    got = loaders.create_finetune_arrays(domain, split, batch_size, processed_dir)
-    assert len(got.batches) == len(want.batches) > 0
-    for g, w in zip(got.batches, want.batches):
-        assert_batches_equal(g, w)
-
-
-@pytest.mark.parametrize("batch_size", [-1, 5])
-def test_nc_loader_equals_jax(processed_dir, batch_size):
-    want = jax_loaders.create_finetune_arrays("Cora_NC", "train", batch_size, processed_dir)
-    got = loaders.create_finetune_arrays("Cora_NC", "train", batch_size, processed_dir)
-    assert_batches_equal(got.graph, want.graph)
-    assert len(got.node_indices) == len(want.node_indices)
-    for a, b in zip(got.node_indices + got.labels, want.node_indices + want.labels):
-        np.testing.assert_array_equal(a, b)
-        assert a.dtype == b.dtype
-
-
-@pytest.mark.parametrize("split", ["train", "val", "test"])
-def test_lp_loader_equals_jax(processed_dir, split):
-    """Unshuffled positives (train) or pos-then-neg (val/test), ragged tail
-    padded with a validity mask; message passing over the train edges only."""
-    want = jax_loaders.create_finetune_arrays("Cora_LP", split, 64, processed_dir)
-    got = loaders.create_finetune_arrays("Cora_LP", split, 64, processed_dir)
-    assert_batches_equal(got.graph, want.graph)
-    np.testing.assert_array_equal(got.train_edges, want.train_edges)
-    assert len(got.edges) == len(want.edges)
-    for field in ("edges", "labels", "edge_mask"):
-        for a, b in zip(getattr(got, field), getattr(want, field)):
-            np.testing.assert_array_equal(a, b)
-            assert a.dtype == b.dtype
-    assert got.edge_mask[-1].sum() < 64                      # the tail is ragged
-    if split != "train":
-        labels = np.concatenate(got.labels)[np.concatenate(got.edge_mask) > 0]
-        assert (np.diff(labels) <= 0).all() and labels[0] == 1 and labels[-1] == 0
-
-
 # -- msgpack writer and checkpoints -------------------------------------------------
-
-
-def test_packb_round_trips_and_flax_restores_it():
-    from flax import serialization
-
-    rng = np.random.default_rng(0)
-    tree = {"params": {"a": rng.normal(size=(3, 300)).astype(np.float32),
-                       "eps": np.float32(0.25).reshape(()),
-                       "half": rng.normal(size=70000).astype(np.float16)},
-            "meta": {"epoch": 7, "neg": -40000, "big": 2 ** 40, "flag": True,
-                     "none": None, "name": "x" * 300, "vals": [0.5, 1, "s"],
-                     "scalar": np.float32(1.5)},
-            "wide": {f"k{i}": i for i in range(20)}}
-    blob = packb(tree)
-    for restored in (unpackb(blob), serialization.msgpack_restore(blob)):
-        np.testing.assert_array_equal(restored["params"]["a"], tree["params"]["a"])
-        assert restored["params"]["eps"].shape == () and restored["params"]["eps"] == 0.25
-        np.testing.assert_array_equal(restored["params"]["half"], tree["params"]["half"])
-        assert restored["params"]["half"].dtype == np.float16
-        meta = dict(restored["meta"])
-        assert float(meta.pop("scalar")) == 1.5
-        assert meta == {k: v for k, v in tree["meta"].items() if k != "scalar"}
-        assert restored["wide"] == tree["wide"]
-    # And the other way: what flax writes, packb reproduces byte for byte
-    # wherever the encodings are canonical (arrays, small ints, strings).
-    small = {"a": tree["params"]["a"], "n": 3, "s": "abc"}
-    assert packb(small) == serialization.msgpack_serialize(small)
-    with pytest.raises(TypeError):
-        packb({"x": object()})
-
-
-def test_save_checkpoint_loads_in_both_packages(tmp_path):
-    rng = np.random.default_rng(1)
-    params = {"head": {"kernel": rng.normal(size=(4, 3)).astype(np.float32)}}
-    stats = {"bn": {"mean": np.zeros(3, np.float32), "var": np.ones(3, np.float32)}}
-    path = tmp_path / "sub" / "model.msgpack"
-    checkpoint.save_checkpoint(path, params, stats, 4, {"val/accuracy": np.float64(0.5)})
-    assert not path.with_name(path.name + ".tmp").exists()
-    for loaded in (checkpoint.load_checkpoint(path), jax_checkpoint.load_checkpoint(path)):
-        np.testing.assert_array_equal(loaded["params"]["head"]["kernel"],
-                                      params["head"]["kernel"])
-        np.testing.assert_array_equal(loaded["batch_stats"]["bn"]["var"], stats["bn"]["var"])
-        assert loaded["meta"] == {"epoch": 4, "val_metrics": {"val/accuracy": 0.5}}
 
 
 # -- dropout ----------------------------------------------------------------------

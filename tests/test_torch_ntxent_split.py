@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from gnn_pretraining_tpu.ops import ntxent_pallas
+from gnn_pretraining_tpu.ops.sddmm import nt_xent_loss
 from gnn_pretraining_tpu_torch.ops import ntxent
 
 torch.set_num_threads(1)
@@ -41,9 +42,10 @@ LOSS_TOL, GRAD_TOL = 1e-5, 1e-4          # chip_smoke.py's NTXENT_*_TOL
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to tf32: + half an ulp of tf32 on the bits, low 13 bits 0."""
+    """x rounded to tf32: + half an ulp of tf32 on the bits, low 13 bits 0;
+    a NaN or an infinity as it is (the kernels' tf32_round)."""
     b = x.contiguous().view(torch.int32)
-    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), ((b + 0x1000) & ~0x1FFF).view(torch.float32), x)
 
 
 def split(x: torch.Tensor):
@@ -129,32 +131,6 @@ def inputs(seed: int, rows: int, d: int = 128, share: float = 0.7, tau: float = 
     valid = torch.from_numpy((rng.random(n) < share).astype(np.float32))
     zhat, vv, _ = ntxent._prep(z1, z2, valid)
     return zhat, vv, torch.tensor([tau])
-
-
-# ---------------------------------------------------------------------------
-# The grid plan
-
-
-@pytest.mark.parametrize("rows", [16, 400, 832, 2640, 4104, 8192])
-def test_plan_covers_every_pair_once(rows):
-    tiles, chunks, per = ntxent.plan(rows, H100_SMS)
-    assert tiles * ntxent.TILE >= rows > (tiles - 1) * ntxent.TILE
-    covered = np.zeros((rows, rows), np.int8)
-    for i in range(tiles):
-        for c in range(chunks):
-            cols = slice(c * per * ntxent.TILE, min((c + 1) * per * ntxent.TILE, rows))
-            assert cols.start < cols.stop                    # no empty chunk
-            covered[i * ntxent.TILE:(i + 1) * ntxent.TILE, cols] += 1
-    assert (covered == 1).all()
-    if rows >= 400:
-        assert tiles * chunks >= H100_SMS
-
-
-def test_plan_fills_the_card_from_400_rows_on():
-    for rows in range(400, 8194, 2):
-        tiles, chunks, per = ntxent.plan(rows, H100_SMS)
-        assert tiles * chunks >= H100_SMS, rows
-        assert (chunks - 1) * per < tiles <= chunks * per, rows
 
 
 # ---------------------------------------------------------------------------
@@ -271,3 +247,67 @@ def test_model_holds_the_chip_limits(rows):
     for got, ref in ((rows_term, ref_rows), (cols_term, ref_cols), (dz, ref_rows + ref_cols)):
         assert torch.isfinite(got).all()
         assert float((got - ref).abs().max()) <= GRAD_TOL * float(ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# NaN where the plain version puts it
+
+CARD_NAN = torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(torch.float32)  # the card's NaN
+
+
+def nan_masks(*arrays):
+    return [np.isnan(np.asarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("row", [3, 13], ids=["valid_row", "invalid_row"])
+def test_nan_rows_where_jax_and_the_plain_version_put_them(row):
+    """One NaN row of z1 (valid: every valid row's loss turns NaN; invalid:
+    its columns are masked, so only its own row does). The port's plain
+    versions give NaN in the rows, and dẐ entries, where the JAX package's
+    Pallas kernels in interpret mode do (and its plain ``nt_xent_loss`` on
+    the valid rows' sum), and so does the kernel model on Ẑ holding the
+    card's NaN (0x7fffffff, which the split once rounded to -0)."""
+    temp = 0.37
+    z1, z2, valid = jax_case(4, 16, 8, 12)
+    z1[row] = np.nan
+    jz, jvv, _ = ntxent_pallas._prep(jnp.array(z1), jnp.array(z2), jnp.array(valid))
+    j_fwd = ntxent_pallas._fwd_call(jz, jvv, np.float32(temp))
+    t = torch.tensor([temp])
+    zhat, vv, _ = ntxent._prep(torch.from_numpy(z1), torch.from_numpy(z2),
+                               torch.from_numpy(valid.astype(np.float32)))
+    fwd = ntxent.ntxent_fwd_reference(zhat, vv, t)
+    card = torch.where(torch.isnan(zhat), CARD_NAN, zhat)
+    model = model_fwd(card, vv, t)
+    want = nan_masks(*j_fwd)
+    assert [m.tolist() for m in nan_masks(*fwd)] == [m.tolist() for m in want]
+    assert [m.tolist() for m in nan_masks(*model)] == [m.tolist() for m in want]
+    on = np.concatenate([valid, valid])
+    assert want[0][on].all() if row < 12 else not want[0][on].any()
+    assert want[0][row]
+
+    g = 0.8 * vv
+    j_dz = ntxent_pallas._bwd_call(jz, jvv, np.float32(temp), j_fwd[1], j_fwd[2],
+                                   jnp.array(g.numpy()))
+    dz = ntxent.ntxent_bwd_reference(zhat, vv, t, *fwd[1:], g)
+    assert torch.equal(torch.isnan(dz), torch.from_numpy(np.isnan(np.asarray(j_dz))))
+    assert torch.equal(torch.isnan(model_bwd(card, vv, t, *model[1:], g)), torch.isnan(dz))
+
+    a, b = torch.from_numpy(z1).requires_grad_(), torch.from_numpy(z2).requires_grad_()
+    total, _ = ntxent.nt_xent(a, b, t, torch.from_numpy(valid.astype(np.float32)))
+    total.backward()
+    j_total = ntxent_pallas.nt_xent_pallas(jnp.array(z1), jnp.array(z2), np.float32(temp),
+                                           jnp.array(valid))[0]
+    j_plain = nt_xent_loss(jnp.array(z1), jnp.array(z2), np.float32(temp), jnp.array(valid))[0]
+    assert np.isnan(float(total.detach())) and np.isnan(float(j_total))    # loss * vv: NaN * 0
+    # JAX's plain formula drops an invalid row with a select, not a product:
+    # it agrees with the valid rows' sum.
+    valid_sum = float(fwd[0][torch.from_numpy(on > 0)].sum())
+    if row < 12:
+        assert np.isnan(float(j_plain)) and np.isnan(valid_sum)
+    else:
+        np.testing.assert_allclose(valid_sum, float(j_plain), rtol=1e-5)
+    j_grads = jax.grad(lambda x, y: ntxent_pallas.nt_xent_pallas(
+        x, y, np.float32(temp), jnp.array(valid))[0], argnums=(0, 1))(jnp.array(z1), jnp.array(z2))
+    for got, want_g in zip((a.grad, b.grad), j_grads):
+        assert np.array_equal(np.isnan(got.numpy()), np.isnan(np.asarray(want_g)))
+

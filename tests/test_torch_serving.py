@@ -201,16 +201,6 @@ def test_serving_fn_matches_jax(domain, monkeypatch, jax_initialised):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        load_serving_model("ENZYMES", ARTIFACT)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        FinetuneGNN("Cora_NC")
-    model = load_serving_model("Cora_NC", ARTIFACT, device="cpu", seed=3)
-    assert next(model.parameters()).device.type == "cpu" and not model.training
-
-
 def _cli(out, ckpt, domain, *extra, nodes=24, edges=60):
     """``export_model.main(argv)`` at a bucket of ``_small_example``'s shape
     (or ``nodes`` / ``edges``) for the CPU; -> its exit code."""
@@ -293,14 +283,6 @@ def test_embed_artifact_matches_stablehlo_replay(enzymes_embeddings, stablehlo_r
     assert_fp16_gap(got, stablehlo_replay)
 
 
-@pytest.mark.parametrize("aggregation", ["pallas", "csr"])
-def test_export_rejects_kernel_aggregations(aggregation):
-    ex = _small_example("Cora_NC", np.random.default_rng(1))
-    with pytest.raises(ValueError, match="not exportable"):
-        serving.export_serving(FinetuneGNN("Cora_NC", aggregation, device="cpu"), ex,
-                               platforms=("cpu",))
-
-
 def test_export_and_replay_need_their_device(monkeypatch, exported):
     """A cuda program is never quietly dropped: exporting one without a card
     raises, replay runs on the card unless device="cpu", and an artifact
@@ -340,11 +322,3 @@ def test_cli_exports_runnable_artifact(source, request):
     np.testing.assert_array_equal(served(*args).numpy(), want(*args).numpy())
 
 
-def test_cli_refuses_task_export_from_pretrain_checkpoint(tmp_path):
-    ckpt = tmp_path / "pre.msgpack"
-    save_checkpoint(ckpt, {"gnn_backbone": {"layers_0": {"eps": np.float32(0)}}}, {},
-                    epoch=0)
-    with pytest.raises(SystemExit, match="fine-tune first"):
-        _cli(tmp_path / "nc.pt2", ckpt, "Cora_NC")
-    with pytest.raises(SystemExit, match="fine-tune first"):
-        _cli(tmp_path / "nc.pt2", ckpt, "Cora_NC", "--embed")
