@@ -128,6 +128,27 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 of phase 8 and of (a): the manifest's sha256 and bytes
                 recomputed from the files, each serving artifact replayed on
                 the card within ARTIFACT_TOL of its eager model;
+ 12c. dp     -- data parallelism (parallel/, finetune/gc_data_parallel.py)
+                on the one card: NCCL refuses two ranks on one device, so
+                DP_RANKS processes form a gloo group on cuda:0 over a
+                FileStore. Which collectives gloo runs on CUDA tensors. One
+                s5 data-parallel step at full width and depth on phase 8's
+                stores, each rank on its share of the sampler's draw
+                (dp_pads, shard_sampler_step): each rank's K1 and K2
+                launches (K2 on the rows gathered over the ranks), and its
+                losses, per-task and combined gradients against one process
+                stepping on the union of the shares with the same views,
+                masks, negatives, PCGrad order, dropout keep-masks and ReLU
+                branches (row for row), at the pretrain phase's twin
+                tolerances; after a second step on the ranks' own draws
+                their parameters and BatchNorm statistics bitwise equal.
+                One ENZYMES full_finetune graph-classification step and
+                eval step dealt over the ranks against one process on the
+                whole batch. The CUDA-event medians of the data-parallel
+                steps beside the single process's (the ranks share the
+                card). Then run_pretrain --dp auto, s2 for 1 epoch on the
+                resume phase's stores: one card, so the single-device path,
+                and its summary's fidelity block is the one without --dp;
  13. data    -- the port's offline preprocessing (data/setup.py, host code)
                 on this machine, then the kernels driven from the stores it
                 made: (1) setup.main at scale 1 without raw files, one
@@ -413,6 +434,14 @@ NAN_LAUNCHES = {"gin_spmm_fwd": 3 * 80, "gin_spmm_bwd": 3 * 80,
 # Checks that fail on the card for a known fault, each with where it is
 # tracked; the script fails if one of them passes (take it out then).
 KNOWN_FAILURES = {}
+
+# Phase 12c, dp: data parallelism on the one card.
+DP_RANKS = 2                    # gloo ranks on the one card (NCCL refuses two on one device)
+DP_SCHEME = "s5"
+DP_GC_CELL = ("ENZYMES", "full_finetune")
+DP_TIMING_REPS = 5
+DP_EVAL_TOL = 1e-2              # the eval loss after one AdamW step on each side
+DP_RANK_TIMEOUT_S = 600
 # K2 on inputs that hold NaN (k2_nan_phase): besides the poisoned step's own
 # NT-Xent inputs, Ẑ of NTXENT_NAN_ROWS rows (ntxent_inputs) with one row made
 # NaN on the card (0/0, the card's NaN): a valid row, whose columns poison
@@ -1128,6 +1157,13 @@ def ntxent_shapes(processed_dir: Path) -> dict:
         val = create_pretrain_val_loader(domain, processed_dir)[0]
         add(2 * val.num_nodes, f"val {domain} node_contrast")
         add(2 * val.num_graphs, "val graph_contrast")
+    # The dp phase gathers the rows of its DP_RANKS ranks (each at dp_pads).
+    from gnn_pretraining_tpu_torch.parallel.data_parallel import dp_pads
+
+    for domain, (n_pad, _, g_local) in dp_pads(pretrain_loader(processed_dir, DP_SCHEME)[1],
+                                               DP_RANKS).items():
+        add(2 * DP_RANKS * n_pad, f"train dp {DP_SCHEME} {domain} node_contrast, gathered")
+    add(2 * DP_RANKS * g_local, f"train dp {DP_SCHEME} graph_contrast, gathered")
     add(NTXENT_MULTI_TILE_ROWS, "multi-tile")
     emit({"phase": "ntxent", "rows": [{"rows": r, "of": of} for r, of in rows.items()]})
     return rows
@@ -2559,6 +2595,493 @@ def sweep_phase(device, processed_dir: Path, resume_dir: Path, out_root: Path, t
         raise AssertionError(f"the sweep phase failed its checks: {failed}")
 
 
+class RowMap:
+    """Where the real rows of each rank's batch sit in the union batch (rank
+    0's graphs first) that a single process steps on: node, edge, pair (the
+    link predictor's [positive edges; negatives]) and graph rows."""
+
+    def __init__(self, rank_batches):
+        self.nodes, self.edges, self.pads = [], [], []
+        n_off = e_off = 0
+        for b in rank_batches:
+            n, e = int(b.node_mask.sum()), int(b.edge_mask.sum())
+            self.nodes.append(n_off + torch.arange(n))
+            self.edges.append(e_off + torch.arange(e))
+            self.pads.append((b.num_nodes, b.num_edges, b.num_graphs))
+            n_off, e_off = n_off + n, e_off + e
+        from gnn_pretraining_tpu_torch.data.batch import round_up
+
+        self.union = (round_up(n_off), round_up(e_off))
+
+    def kind(self, rows: int) -> str:
+        n_pad, e_pad, g = self.pads[0]
+        kinds = {n_pad: "node", 2 * e_pad: "pair", g: "graph"}
+        if len(kinds) != 3:
+            raise AssertionError(f"rank rows of two kinds coincide: {self.pads[0]}")
+        return kinds[rows]
+
+    def to_rank(self, a: torch.Tensor, kind: str, r: int, dim: int = 0) -> torch.Tensor:
+        """Rank r's rows of the union rows ``a`` (its padding rows 0)."""
+        rows = (self.nodes if kind == "node" else self.edges)[r].to(a.device)
+        shape = list(a.shape)
+        shape[dim] = self.pads[r][0 if kind == "node" else 1]
+        out = a.new_zeros(shape)
+        out.narrow(dim, 0, len(rows)).copy_(a.index_select(dim, rows))
+        return out
+
+    def to_union(self, arrays, fill) -> torch.Tensor:
+        """The union rows of the ranks' ``arrays`` (same shape on every rank:
+        the ranks share their pads); the union's padding rows ``fill``."""
+        kind = self.kind(arrays[0].shape[0])
+        if kind == "graph":
+            return torch.cat(list(arrays))
+        n_u, e_u = self.union
+        out = torch.full(((n_u if kind == "node" else 2 * e_u), *arrays[0].shape[1:]), fill,
+                         dtype=arrays[0].dtype)
+        for r, a in enumerate(arrays):
+            if kind == "node":
+                out[self.nodes[r]] = a[:len(self.nodes[r])]
+            else:
+                e_r, rows = self.pads[r][1], self.edges[r]
+                out[rows] = a[:len(rows)]
+                out[e_u + rows] = a[e_r:e_r + len(rows)]
+        return out
+
+
+def union_of(stores: dict, picked: list, maps: dict, with_properties: bool) -> dict:
+    """{domain: the batch of every rank's graphs, rank 0's first}."""
+    from gnn_pretraining_tpu_torch.data.batch import build_batch
+
+    out = {}
+    for d, store in stores.items():
+        ix = np.concatenate([p[d] for p in picked])
+        out[d] = build_batch(store, ix, *maps[d].union, len(ix),
+                             with_properties=with_properties)
+    return out
+
+
+def tagged_recording(model, tasks_module, domain=None):
+    """Within the block, every ReLU call's ``x > 0``, every dropout keep-mask
+    and every max pool's winners (``utils/relu_branches``'s), each as (domain
+    of the forward, tensor on the host): the domain is ``domain``, else that
+    of the model's last ``encode``."""
+    import contextlib
+
+    from torch import nn
+
+    @contextlib.contextmanager
+    def block():
+        now = [domain]
+        out = {"branches": [], "pooled": [], "dropout": []}
+        real_encode, source = getattr(model, "encode", None), model.dropout
+        real_max = tasks_module.segment_max
+        real_keep = source.keep_mask
+
+        def encode(x, mask, d):
+            now[0] = d
+            return real_encode(x, mask, d)
+
+        def keep_mask(x, rate):
+            keep = real_keep(x, rate)
+            out["dropout"].append((now[0], keep.detach().cpu()))
+            return keep
+
+        def segment_max(data, ids, num, mask):
+            top = real_max(data, ids, num, mask)
+            won = (data.detach() == top.detach()[ids.long()]) & mask.bool()[:, None]
+            out["pooled"].append((now[0], won.cpu()))
+            return top
+
+        hooks = [m.register_forward_pre_hook(
+            lambda _m, args: out["branches"].append((now[0], (args[0].detach() > 0).cpu())))
+            for m in model.modules() if isinstance(m, nn.ReLU)]
+        if domain is None:
+            model.encode = encode
+        source.keep_mask, tasks_module.segment_max = keep_mask, segment_max
+        try:
+            yield out
+        finally:
+            for h in hooks:
+                h.remove()
+            model.__dict__.pop("encode", None)
+            source.keep_mask, tasks_module.segment_max = real_keep, real_max
+
+    return block()
+
+
+def union_records(ranks: list, maps: dict, key: str, fill, device):
+    """The union batch's records of ``key`` from every rank's, call by call."""
+    calls = zip(*(out[key] for out in ranks))
+    return [maps[tagged[0][0]].to_union([t for _, t in tagged], fill).to(device)
+            for tagged in calls]
+
+
+def moved(obj, device):
+    """``obj`` with every tensor (in GraphBatches, named tuples, lists,
+    dicts) on ``device``."""
+    if torch.is_tensor(obj) or hasattr(obj, "to") and dataclasses.is_dataclass(obj):
+        return obj.to(device)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(moved(x, device) for x in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(moved(x, device) for x in obj)
+    if isinstance(obj, dict):
+        return {k: moved(v, device) for k, v in obj.items()}
+    return obj
+
+
+def event_median(fn, reps: int = DP_TIMING_REPS) -> float:
+    """Median CUDA-event ms of ``reps`` calls made back to back after one
+    warm-up call, the host's launches included."""
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def gloo_cuda_collectives(device) -> dict:
+    """Which collectives gloo runs on tensors of ``device`` (the card): each
+    tried once on a group of its own (30 s timeout), after the checked work;
+    a refusal is recorded, and nothing else depends on it."""
+    import datetime
+
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=30))
+    x = torch.ones(4, device=device)
+    n = dist.get_world_size(group)
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0, group=group),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(n)], x,
+                                              group=group),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty_like(x), [x.clone() for _ in range(n)], group=group),
+        "all_to_all": lambda: dist.all_to_all(
+            [torch.empty_like(x) for _ in range(n)], [x.clone() for _ in range(n)],
+            group=group)}
+    out = {}
+    for name, probe in probes.items():
+        try:
+            probe()
+            torch.cuda.synchronize()
+            out[name] = "runs"
+        except (RuntimeError, ValueError, NotImplementedError) as err:
+            out[name] = "refused: " + str(err).strip().splitlines()[0][:160]
+    return out
+
+
+def dp_pretrain_rank(axis, inputs) -> dict:
+    """This rank's s5 data-parallel step on its share, with the union's draws
+    (its rows) injected and every kink and keep-mask recorded; a second step
+    on its own draws; the step's time."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from gnn_pretraining_tpu_torch.pretrain import pretrain as pt
+    from gnn_pretraining_tpu_torch.pretrain import tasks
+    from gnn_pretraining_tpu_torch.pretrain.optimizers import create_task_specific_optimizer
+
+    dev = axis.device
+    mine = moved(inputs["ranks"][axis.rank], dev)
+    cfg = config.PretrainConfig(DP_SCHEME, 42)
+    model = pt.build_pretrain_model(cfg, "pallas", dev, axis)
+    optimizer, _, _ = create_task_specific_optimizer(model, cfg.active_tasks)
+    streams = pt.random_streams(cfg, model, dev, axis)
+    streams["views"].inject(mine["views"])
+    streams["task_draws"].inject(mine["mask_scores"], mine["negatives"])
+    step = make_dp_train_step(model, cfg, optimizer, inputs["total_steps"], axis,
+                              streams["views"], streams["pcgrad"], streams["task_draws"])
+    state = pt.PretrainState()
+    kernels = counters()
+    for c in kernels.values():
+        c.launches = 0
+    with tagged_recording(model, tasks) as rec:
+        metrics = step(state, mine["batches"], perm=inputs["perm"])
+    torch.cuda.synchronize()
+    names = [n for n, _ in model.named_parameters()]
+    out = {"launches": {name: c.launches for name, c in kernels.items()},
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "task_grads": {t: {n: g.cpu() for n, g in zip(names, gs)}
+                          for t, gs in step.last_task_grads.items()},
+           "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}, **rec}
+    step(state, mine["second"])
+    out["after_two"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    out["step_ms"] = event_median(lambda: step(state, mine["second"]))
+    return out
+
+
+def dp_gc_rank(axis, inputs) -> dict:
+    """This rank's graph-classification data-parallel train and eval steps
+    on its share of one batch, kinks and keep-masks recorded."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.finetune import finetune as ft
+    from gnn_pretraining_tpu_torch.finetune.gc_data_parallel import (
+        make_gc_steps_data_parallel,
+    )
+    from gnn_pretraining_tpu_torch.pretrain import tasks
+
+    cfg = config.FinetuneConfig(*DP_GC_CELL, "b1", 42)
+    model = ft.build_finetune_model(cfg, "coo", axis.device, axis=axis)
+    optimizer, labels, _ = ft.create_finetune_optimizer(model, cfg)
+    train, evaluate = make_gc_steps_data_parallel(model, cfg, optimizer, labels, axis)
+    batch = inputs["ranks"][axis.rank]["gc"].to(axis.device)
+    with tagged_recording(model, tasks, cfg.domain_name) as rec:
+        out = train(batch)
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+    return {"gc_train": [x.cpu() for x in out], "gc_eval": [x.cpu() for x in evaluate(batch)],
+            "gc_grads": grads, "gc_branches": rec["branches"], "gc_dropout": rec["dropout"],
+            "gc_step_ms": event_median(lambda: train(batch))}
+
+
+def dp_rank_main() -> None:
+    """One rank of the dp phase (``python -c "import chip_smoke;
+    chip_smoke.dp_rank_main()" RANK TMP``): a group of the phase's ranks
+    over a FileStore in TMP, gloo on the one card or NCCL with a card per
+    rank; writes TMP/rank<RANK>.pt."""
+    import torch.distributed as dist
+
+    rank, tmp = int(sys.argv[1]), Path(sys.argv[2])
+    import_port()
+    from gnn_pretraining_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(tmp / "inputs.pt", weights_only=False)
+    n, device = len(inputs["ranks"]), inputs["device"]
+    if inputs["backend"] == "nccl":
+        device = f"cuda:{rank}"
+        torch.cuda.set_device(device)
+    dist.init_process_group(inputs["backend"], store=dist.FileStore(str(tmp / "store"), n),
+                            rank=rank, world_size=n)
+    try:
+        axis = make_mesh(device, dist.group.WORLD)
+        out = {**dp_pretrain_rank(axis, inputs), **dp_gc_rank(axis, inputs)}
+        out["collectives"] = gloo_cuda_collectives(axis.device)
+        torch.save(out, tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def grad_errs(got: dict, want: dict) -> dict:
+    """max |diff| / max |want| and ||diff|| / ||want|| over the leaves."""
+    g_max = max(float(g.abs().max()) for g in want.values())
+    l2 = math.sqrt(sum(float(g.double().pow(2).sum()) for g in want.values()))
+    diff = {n: (got[n].to(want[n].device) - want[n]) for n in want}
+    return {"max": max(float(d.abs().max()) for d in diff.values()) / g_max,
+            "l2": math.sqrt(sum(float(d.double().pow(2).sum()) for d in diff.values())) / l2}
+
+
+def dp_phase(device, processed_dir: Path, resume_dir: Path, tmp: Path, card,
+             n: int = DP_RANKS, backend: str = "gloo") -> dict:
+    """The dp phase of the module docstring on ``n`` ranks (gloo on one card,
+    or NCCL with a card per rank: tools/dp_cards.py); returns the launches
+    of its paths (every rank's checked step and run_pretrain --dp auto)."""
+    import types
+
+    from gnn_pretraining_tpu_torch import config, run_pretrain
+    from gnn_pretraining_tpu_torch.data.batch import GraphStore, build_batch
+    from gnn_pretraining_tpu_torch.finetune import finetune as ft
+    from gnn_pretraining_tpu_torch.finetune.gc_data_parallel import build_sharded_gc_batches
+    from gnn_pretraining_tpu_torch.ops.sampling import NegativeDraws
+    from gnn_pretraining_tpu_torch.parallel import data_parallel as dp
+    from gnn_pretraining_tpu_torch.pretrain import pretrain as pt
+    from gnn_pretraining_tpu_torch.pretrain import tasks
+    from gnn_pretraining_tpu_torch.pretrain.augmentations import GraphView
+    from gnn_pretraining_tpu_torch.utils import relu_branches
+    from gnn_pretraining_tpu_torch.utils.fidelity import fidelity_block
+
+    t0 = time.perf_counter()
+    tmp.mkdir(parents=True)
+    # Every rank draws two steps from a copy of the same sampler state; the
+    # single process steps on the union of the first step's shares.
+    loaders = [pretrain_loader(processed_dir, DP_SCHEME) for _ in range(n)]
+    cfg, sampler = loaders[0]
+    pads = dp.dp_pads(sampler, n)
+    picked, steps, real = [], [], dp.build_batch
+    with mock.patch.object(dp, "build_batch", lambda store, ix, *a, **k: (
+            picked.append(np.asarray(ix)), real(store, ix, *a, **k))[1]):
+        for _ in range(2):
+            shares = []
+            for r, (_, s) in enumerate(loaders):
+                picked.clear()
+                shares.append((dp.shard_sampler_step(s, n, r, pads),
+                               dict(zip(s.domain_stores, picked))))
+            steps.append(shares)
+    first = steps[0]
+    maps = {d: RowMap([b[d] for b, _ in first]) for d in cfg.pretrain_domains}
+    union = {d: b.to(device) for d, b in union_of(
+        sampler.domain_stores, [p for _, p in first], maps, True).items()}
+    views, masks, negatives, perm = step_draws(cfg, union, device)
+    order = sorted(cfg.pretrain_domains)
+    view_domains = [d for t in cfg.active_tasks if t in ("node_contrast", "graph_contrast")
+                    for d in order]
+
+    def rank_draws(r):
+        out = {"views": [], "mask_scores": [maps[d].to_rank(m, "node", r).cpu()
+                                            for m, d in zip(masks, order)],
+               "negatives": [NegativeDraws(*(maps[d].to_rank(x, "edge", r, dim).cpu()
+                                             for x, dim in zip(n, (1, 1, 0))))
+                             for n, d in zip(negatives, order)]}
+        for (v1, v2, common), d in zip(views, view_domains):
+            m = maps[d]
+            view = lambda v: GraphView(*(m.to_rank(x, k, r).cpu() for x, k in  # noqa: E731
+                                         zip(v, ("node", "node", "edge"))))
+            out["views"].append((view(v1), view(v2), m.to_rank(common, "node", r).cpu()))
+        return out
+
+    gc_cfg = config.FinetuneConfig(*DP_GC_CELL, "b1", 42)
+    gc_store = GraphStore.load(processed_dir / f"{gc_cfg.domain_name}.npz")
+    gc_subs = build_sharded_gc_batches(gc_store, "train", gc_cfg.batch_size, n)[0]
+    gc_map = RowMap(gc_subs)
+    ix = np.asarray(gc_store.splits["train"], np.int64)[:gc_cfg.batch_size]
+    gc_union = build_batch(gc_store, np.concatenate([ix[r::n] for r in range(n)]),
+                           *gc_map.union, gc_cfg.batch_size).to(device)
+    total_steps = len(sampler) * PRETRAIN_ENTRY_EPOCHS
+    torch.save({"total_steps": total_steps, "perm": perm, "device": str(device),
+                "backend": backend,
+                "ranks": [{"batches": first[r][0], "second": steps[1][r][0], "gc": gc_subs[r],
+                           **rank_draws(r)} for r in range(n)]}, tmp / "inputs.pt")
+
+    t_ranks = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               "import chip_smoke; chip_smoke.dp_rank_main()", str(r), str(tmp)],
+                              cwd=HERE, env=child_env(OMP_NUM_THREADS="4"))
+             for r in range(n)]
+    try:
+        rcs = [p.wait(timeout=DP_RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise AssertionError(f"dp ranks exited {rcs}")
+    rank_seconds = time.perf_counter() - t_ranks
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(n)]
+    emit({"phase": "dp", "gloo_on_cuda_tensors": ranks[0]["collectives"],
+          "torch": torch.__version__, "card": card})
+
+    # The single process on the union, on the same draws, kinks and keep-masks.
+    from gnn_pretraining_tpu_torch.pretrain.augmentations import ViewSource
+    from gnn_pretraining_tpu_torch.pretrain.optimizers import create_task_specific_optimizer
+
+    twin = pt.build_pretrain_model(cfg, "pallas", device)
+    optimizer, _, _ = create_task_specific_optimizer(twin, cfg.active_tasks)
+    source, draws = ViewSource(device, seed=SEED), tasks.TaskDraws(device, seed=SEED)
+    source.inject(views)
+    draws.inject(masks, negatives)
+    twin.dropout.inject(union_records(ranks, maps, "dropout", 1.0, device))
+    step = pt.make_train_step(twin, cfg, optimizer, total_steps, source, draws=draws)
+    state = pt.PretrainState()
+    start = {k: v.cpu() for k, v in twin.state_dict().items()}
+    with relu_branches.replay(twin, union_records(ranks, maps, "branches", False, device)) \
+            as flips, relu_branches.max_pool(
+                tasks, replay=union_records(ranks, maps, "pooled", False, device)) as pool_flips:
+        twin_out = {k: float(v) for k, v in step(state, union, perm=perm).items()}
+    names = [n for n, _ in twin.named_parameters()]
+    got = ranks[0]
+    losses = {k: (got["metrics"][k], v) for k, v in twin_out.items()
+              if k.startswith("train/loss/")}
+    loss_err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in losses.values())
+    per_task = {t: grad_errs(got["task_grads"][t], dict(zip(names, gs)))
+                for t, gs in step.last_task_grads.items()}
+    combined = grad_errs(got["grads"], {n: p.grad for n, p in twin.named_parameters()})
+    after = [out["after_two"] for out in ranks]
+    bitwise = all(torch.equal(after[0][k], a[k]) for a in after[1:] for k in after[0])
+    moved_after = any(not torch.equal(after[0][k], v) for k, v in start.items())
+    twin_ms = event_median(lambda: step(state, union))
+    expected = launches_of(DP_SCHEME)
+    pre_ok = bool(all(out["launches"] == expected for out in ranks)
+                  and all(out["metrics"] == got["metrics"] for out in ranks)
+                  and set(twin_out) == set(got["metrics"]) == expected_step_keys(cfg)
+                  and all(math.isfinite(a) for a, _ in losses.values())
+                  and loss_err <= TRAIN_LOSS_TOL
+                  and all(e["max"] <= TRAIN_GRAD_TOL and e["l2"] <= TRAIN_GRAD_TOL
+                          for e in per_task.values())
+                  and combined["l2"] <= TRAIN_GRAD_TOL and bitwise and moved_after)
+    emit({"phase": "dp", "step": DP_SCHEME, "ranks": n, "backend": backend,
+          "node_pads_per_rank": {d: pads[d][0] for d in order},
+          "node_pads_union": {d: b.num_nodes for d, b in union.items()},
+          "launches_per_rank": [out["launches"] for out in ranks], "expected": expected,
+          "loss_max_rel_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
+          "losses_dp_vs_single": {k: v for k, v in losses.items() if k.count("/") == 2},
+          "task_grad_err": per_task, "combined_grad_err": combined,
+          "grad_tol": TRAIN_GRAD_TOL, "relu_flips_replayed": sum(flips),
+          "max_pool_flips_replayed": sum(pool_flips),
+          "ranks_bitwise_equal_after_two_steps": bitwise,
+          "dp_step_ms_per_rank": [out["step_ms"] for out in ranks],
+          "single_step_ms": twin_ms, "card": card, "ok": pre_ok})
+
+    gc_twin = ft.build_finetune_model(gc_cfg, "coo", device)
+    gc_opt, gc_labels, _ = ft.create_finetune_optimizer(gc_twin, gc_cfg)
+    gc_train, gc_eval = ft.make_gc_steps(gc_twin, gc_cfg, gc_opt, gc_labels)
+    gc_maps = {gc_cfg.domain_name: gc_map}
+    gc_twin.dropout.inject(union_records(ranks, gc_maps, "gc_dropout", 1.0, device))
+    with relu_branches.replay(gc_twin, union_records(ranks, gc_maps, "gc_branches", False,
+                                                     device)):
+        t_loss, t_y, _, t_probs, _ = gc_train(gc_union)
+    t_eval = float(gc_eval(gc_union)[0])
+    loss, y, _, probs, _ = got["gc_train"]
+    gc_grads = grad_errs(got["gc_grads"], {n: p.grad for n, p in gc_twin.named_parameters()
+                                           if p.grad is not None})
+    gc_loss_err = abs(float(loss) - float(t_loss)) / abs(float(t_loss))
+    eval_err = abs(float(got["gc_eval"][0]) - t_eval) / abs(t_eval)
+    gc_twin_ms = event_median(lambda: gc_train(gc_union))
+    gc_ok = bool(gc_loss_err <= TRAIN_LOSS_TOL and torch.equal(y, t_y.cpu())
+                 and float((probs - t_probs.cpu()).abs().max()) <= TRAIN_GRAD_TOL
+                 and gc_grads["max"] <= TRAIN_GRAD_TOL and gc_grads["l2"] <= TRAIN_GRAD_TOL
+                 and eval_err <= DP_EVAL_TOL
+                 and all(torch.equal(out["gc_train"][0], loss) for out in ranks))
+    emit({"phase": "dp", "cell": "/".join(DP_GC_CELL), "graphs_per_rank": gc_map.pads[0][2],
+          "loss_rel_err": gc_loss_err, "probs_max_abs_err": float((probs - t_probs.cpu())
+                                                                  .abs().max()),
+          "grad_err": gc_grads, "eval_loss_rel_err": eval_err, "eval_tol": DP_EVAL_TOL,
+          "dp_step_ms_per_rank": [out["gc_step_ms"] for out in ranks],
+          "single_step_ms": gc_twin_ms, "card": card, "ok": gc_ok})
+
+    # run_pretrain --dp auto: on one card the single-device path; on k
+    # cards k ranks of it, whose launches this process does not see.
+    one_card = device.type != "cuda" or torch.cuda.device_count() == 1
+    kernels = counters()
+    for c in kernels.values():
+        c.launches = 0
+    root = tmp / "dp_auto"
+    s2 = config.PretrainConfig("s2", 42)
+    rc, _ = captured_main(run_pretrain.main, [
+        "--exp_name", "s2", "--seed", "42", "--epochs", "1", "--dp", "auto",
+        "--processed_dir", str(resume_dir), "--out_root", str(root)])
+    auto_launches = {name: c.launches for name, c in kernels.items()}
+    summary = json.loads((root / "metrics" / config.PRETRAIN_PROJECT_NAME
+                          / f"{s2.run_name}.summary.json").read_text())
+    block = {k: v for k, v in summary.items() if k.startswith("fidelity/")}
+    plain = types.SimpleNamespace(out_root=str(root), epochs=1, aggregation="pallas",
+                                  processed_dir=str(resume_dir))
+    auto_ok = bool(rc == 0 and block == fidelity_block(1, 42, "pallas", str(resume_dir),
+                                                       s2.pretrain_domains)
+                   and run_pretrain.cell_completed(s2, plain)
+                   and not torch.distributed.is_initialized()
+                   and (not one_card or all(auto_launches[k] > 0
+                                            for k in ("gin_spmm_fwd", "ntxent_fwd"))))
+    emit({"phase": "dp", "run_pretrain": "--dp auto, s2, 1 epoch",
+          "cards": torch.cuda.device_count() if device.type == "cuda" else 0, "rc": rc,
+          "fidelity": block, "cell_completed_without_dp": auto_ok, "launches": auto_launches,
+          "ok": auto_ok})
+    launches = {name: sum(out["launches"][name] for out in ranks) + auto_launches[name]
+                for name in kernels}
+    emit({"phase": "dp", "seconds": time.perf_counter() - t0, "ranks_seconds": rank_seconds,
+          "card": card, "ok": pre_ok and gc_ok and auto_ok})
+    if not (pre_ok and gc_ok and auto_ok):
+        raise AssertionError(f"the dp phase failed its checks: step {pre_ok}, gc {gc_ok}, "
+                             f"run_pretrain --dp auto {auto_ok}")
+    return launches
+
+
 def store_digest(path: Path) -> dict:
     """Key -> digest of one store's arrays: integer and bool arrays by dtype,
     shape and the SHA-256 of their bytes; float arrays by dtype, shape and
@@ -3272,10 +3795,14 @@ def main() -> int:
             processed_dir, resume_dir, out_root)))
         _, sweep = run_path(lambda: clocked("sweep", lambda: sweep_phase(
             device, processed_dir, resume_dir, out_root, Path(tmp) / "sweep", card)))
+        # Its ranks count their own launches; the parent's comparison step
+        # and its own launches stay out of the path's.
+        dp = clocked("dp", lambda: dp_phase(device, processed_dir, resume_dir,
+                                            Path(tmp) / "dp", card))
         _, data = run_path(lambda: clocked("data", lambda: data_phase(Path(tmp), out_root)))
         paths = {"serving": serving, "train": train, "pretrain": pretrain,
                  "pretrain_tasks": pretrain_tasks, "csr": csr, "resume": resume,
-                 "drivers": drivers, "sweep": sweep, "data": data}
+                 "drivers": drivers, "sweep": sweep, "dp": dp, "data": data}
         # The kernel rows read these dicts; the artifacts path joins them below.
         launches = {name: {path: counts[name] for path, counts in paths.items()}
                     for name in kernels}
@@ -3308,7 +3835,7 @@ def main() -> int:
     k3 = CELL_KERNELS["csr"]
     unlaunched = [name for name in kernels if name not in k3
                   and min(pretrain[name], pretrain_tasks[name], resume[name],
-                          drivers[name], data[name]) < 1]
+                          drivers[name], dp[name], data[name]) < 1]
     unlaunched += [name for name in k3 if min(csr[name], drivers[name], data[name]) < 1]
     if min(serving["gin_spmm_fwd"], train["gin_spmm_fwd"], train["gin_spmm_bwd"],
            artifacts["gin_spmm_fwd"], artifacts["gin_spmm_bwd"]) < 1 or unlaunched:

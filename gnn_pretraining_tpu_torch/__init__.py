@@ -6,8 +6,8 @@ JAX package gets a kernel written by hand for Hopper (``csrc/``). Ported so
 far: the serving path (the eval-mode forward of ``FinetuneGNN`` with the
 weights of the JAX transfer artifacts), the fine-tune training path
 (``finetune.finetune``: GC, NC and LP steps and the per-step host loop) and
-multi-task pretraining with the contrastive tasks (``pretrain.pretrain``:
-schemes s2 and b3), on kernel K1, the GIN aggregation, forward and backward,
+multi-task pretraining (``pretrain.pretrain``: every scheme), on kernel K1,
+the GIN aggregation, forward and backward,
 and kernel K2, the fused NT-Xent, forward and backward; and fine-tuning on
 graphs past the dense limit (``aggregation="csr"``) on kernel K3, the
 block-CSR GIN aggregation, forward and backward. The offline preprocessing
@@ -17,7 +17,9 @@ boundaries: reference PyTorch ``.pt`` checkpoints import into the port's
 models (``utils.torch_import``), a fine-tuned model exports as a
 self-contained ``torch.export`` serving artifact (``serving.export_serving``,
 ``python -m gnn_pretraining_tpu_torch.export_model``), and ``pretrain
---debug_nans`` stops at the first NaN (``utils.profiling``).
+--debug_nans`` stops at the first NaN (``utils.profiling``). Pretraining and
+graph-classification fine-tuning run data-parallel over the ranks of a
+``torch.distributed`` group (``parallel/``, the drivers' ``--dp auto``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -31,10 +31,20 @@ the splits is remapped, and every GIN layer runs kernel K3 instead.
 The run summary ends with the ``fidelity/*`` block (``utils.fidelity``)
 that a sweep's ``--resume`` checks, and its test row carries the steady
 rates ``test/steady_steps_per_sec`` / ``test/steady_edges_per_sec`` (from
-the third epoch on; see ``STEADY_FROM_EPOCH``). Not ported: the JAX
-package's scan-fused runner (its chunked epochs and best-epoch replay cut
-TPU dispatches; this loop saves the best state at each improvement instead)
-and the multi-device modes.
+the third epoch on; see ``STEADY_FROM_EPOCH``).
+
+``data_parallel=True`` (``--data_parallel``, the drivers' ``--dp auto``) on a
+graph-classification domain runs the steps of
+``finetune/gc_data_parallel.py`` on every rank of the data axis
+(``parallel.mesh.make_mesh``: the group passed as ``axis``, else a
+launcher's node) when it has more than one rank: each rank holds its share
+of every batch, on a ``coo`` model with SyncBN, as in the JAX package. Rank
+0 alone writes the log, the checkpoints and the summary, and hands the best
+checkpoint to every rank for the test pass. Node and link domains, or one rank,
+take the single-device path. Not ported: the JAX package's scan-fused
+runner (its chunked epochs and best-epoch replay cut TPU dispatches; this
+loop saves the best state at each improvement instead) and the edge- and
+node-partitioned modes.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from gnn_pretraining_tpu_torch import config
+from gnn_pretraining_tpu_torch.data.batch import GraphStore
 from gnn_pretraining_tpu_torch.data.loaders import create_finetune_arrays
 from gnn_pretraining_tpu_torch.finetune import metrics as M
 from gnn_pretraining_tpu_torch.finetune.mining import (
@@ -61,6 +72,8 @@ from gnn_pretraining_tpu_torch.finetune.mining import (
 from gnn_pretraining_tpu_torch.finetune.runners import csr_graph_aux
 from gnn_pretraining_tpu_torch.models.finetune_model import FinetuneGNN
 from gnn_pretraining_tpu_torch.ops.spmm import build_dense_adjacency
+from gnn_pretraining_tpu_torch.parallel.data_parallel import rank_seed
+from gnn_pretraining_tpu_torch.parallel.mesh import make_mesh
 from gnn_pretraining_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_transfer_artifact,
@@ -74,7 +87,7 @@ from gnn_pretraining_tpu_torch.utils.convert import (
 )
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
 from gnn_pretraining_tpu_torch.utils.fidelity import fidelity_block
-from gnn_pretraining_tpu_torch.utils.logging import MetricLogger
+from gnn_pretraining_tpu_torch.utils.logging import MetricLogger, SilentLogger
 from gnn_pretraining_tpu_torch.utils.losses import (
     bce_with_logits,
     masked_bce_with_logits_mean,
@@ -315,14 +328,16 @@ def _pretrained_variables(cfg, out_root: Path):
         f"artifact at {artifact_file}")
 
 
-def build_finetune_model(cfg, aggregation: str, device, out_root=None) -> FinetuneGNN:
+def build_finetune_model(cfg, aggregation: str, device, out_root=None,
+                         axis=None) -> FinetuneGNN:
     """A ``FinetuneGNN`` initialised from ``cfg.seed`` (dropout seeded
-    ``cfg.seed + 1``), with the pretrained backbone loaded unless the scheme
-    is ``b1`` (from scratch)."""
+    ``cfg.seed + 1``, on a rank of ``axis`` the rank's seed of it, and SyncBN
+    over the axis), with the pretrained backbone loaded unless the scheme is
+    ``b1`` (from scratch)."""
     model = FinetuneGNN(cfg.domain_name, aggregation,
                         generator=torch.Generator().manual_seed(cfg.seed),
-                        device=device)
-    model.seed_dropout(cfg.seed + 1)
+                        device=device, axis=axis)
+    model.seed_dropout(cfg.seed + 1 if axis is None else rank_seed(cfg.seed + 1, axis.rank))
     if cfg.pretrained_scheme != "b1":
         pt_vars = _pretrained_variables(cfg, Path(out_root or config.OUTPUT_DIR))
         model.load_state_dict(load_pretrained_into_finetune(
@@ -337,7 +352,8 @@ def _save_model(path, model, epoch: int, val_metrics) -> None:
                     epoch, val_metrics)
 
 
-def build_steps(cfg, model: FinetuneGNN, optimizer, labels, data, device):
+def build_steps(cfg, model: FinetuneGNN, optimizer, labels, data, device,
+                axis=None, processed_dir=None):
     """The family's ``(train_step, eval_step, train_batches, eval_batches)``
     for ``data`` (split -> ``create_finetune_arrays`` output): the batch
     iterators yield the steps' positional arguments as device tensors, with
@@ -345,8 +361,32 @@ def build_steps(cfg, model: FinetuneGNN, optimizer, labels, data, device):
 
     Under ``csr`` the steps run on the RCM-permuted graph and its tiles
     (``csr_graph_aux`` of the train graph) and the iterators yield node ids
-    in that labelling."""
+    in that labelling. With ``axis`` (graph classification, ``model`` built
+    on it) the steps are the data-parallel ones over this rank's share of
+    each batch of the store in ``processed_dir``, and the validity mask is
+    every rank's, rank-major, as the steps' outputs are."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+
+    if axis is not None:
+        from gnn_pretraining_tpu_torch.finetune.gc_data_parallel import (
+            build_sharded_gc_batches,
+            make_gc_steps_data_parallel,
+        )
+
+        train_step, eval_step = make_gc_steps_data_parallel(model, cfg, optimizer, labels,
+                                                            axis)
+        store = GraphStore.load(Path(processed_dir or config.PROCESSED_DIR)
+                                / f"{cfg.domain_name}.npz")
+        shards = {split: build_sharded_gc_batches(store, split, cfg.batch_size, axis.size)
+                  for split in data}
+        on_device = {split: [subs[axis.rank].to(device) for subs in batches]
+                     for split, batches in shards.items()}
+
+        def sharded(split):
+            for subs, dev in zip(shards[split], on_device[split]):
+                yield np.concatenate([s.graph_mask.numpy() for s in subs]) > 0, (dev,)
+
+        return train_step, eval_step, lambda: sharded("train"), sharded
 
     if cfg.task_type == "graph_classification":
         train_step, eval_step = make_gc_steps(model, cfg, optimizer, labels)
@@ -416,14 +456,22 @@ def _to_numpy(*tensors):
 
 def finetune(cfg: config.FinetuneConfig, aggregation: str = "pallas",
              processed_dir=None, epochs: Optional[int] = None, out_root=None,
-             device=None, use_wandb: bool = False) -> Dict[str, float]:
+             device=None, use_wandb: bool = False, data_parallel: bool = False,
+             axis=None) -> Dict[str, float]:
     """Fine-tune one cell and return its test metrics.
 
     Runs on the card unless ``device="cpu"``. Checkpoints go to
     ``out_root/finetune``, metrics to ``out_root/metrics``; pretrained
     checkpoints are looked up under ``out_root/pretrain`` before the tracked
-    transfer artifacts."""
+    transfer artifacts. ``data_parallel`` on ``axis`` (else
+    ``make_mesh(device)``): see the module docstring."""
     device = resolve_device(device)
+    if data_parallel and cfg.task_type == "graph_classification":
+        axis = axis or make_mesh(device)
+    axis = axis if data_parallel and axis is not None and axis.size > 1 else None
+    if axis is not None:
+        device = axis.device
+    lead = axis is None or axis.rank == 0
     # f32 products stay f32: the miner's similarities and the linears.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -440,23 +488,28 @@ def finetune(cfg: config.FinetuneConfig, aggregation: str = "pallas",
 
     out_root = Path(out_root or config.OUTPUT_DIR)
     finetune_out_dir = out_root / "finetune"
-    finetune_out_dir.mkdir(parents=True, exist_ok=True)
-    logger = MetricLogger(config.FINETUNE_PROJECT_NAME, cfg.run_name,
-                          out_dir=out_root / "metrics", use_wandb=use_wandb)
+    logger = SilentLogger()
+    if lead:
+        finetune_out_dir.mkdir(parents=True, exist_ok=True)
+        logger = MetricLogger(config.FINETUNE_PROJECT_NAME, cfg.run_name,
+                              out_dir=out_root / "metrics", use_wandb=use_wandb)
 
     data = {split: create_finetune_arrays(cfg.domain_name, split,
                                           cfg.batch_size,
                                           processed_dir=processed_dir)
             for split in ("val", "test", "train")}
 
-    model = build_finetune_model(cfg, aggregation, device, out_root)
+    # The data-parallel model aggregates with coo, as the JAX package's does.
+    model = build_finetune_model(cfg, aggregation if axis is None else "coo", device,
+                                 out_root, axis)
     optimizer, labels, lrs = create_finetune_optimizer(model, cfg)
     total_params, trainable_params = param_counts(model, labels)
     train_step, eval_step, train_batches, eval_batches = build_steps(
-        cfg, model, optimizer, labels, data, device)
+        cfg, model, optimizer, labels, data, device, axis, processed_dir)
 
     ckpt_path = finetune_out_dir / f"model_{cfg.run_name}.msgpack"
-    _save_model(ckpt_path, model, 0, {})
+    if lead:
+        _save_model(ckpt_path, model, 0, {})
 
     # Per-cell throughput telemetry (real mask-valid edges per train step).
     if cfg.task_type == "graph_classification":
@@ -511,18 +564,23 @@ def finetune(cfg: config.FinetuneConfig, aggregation: str = "pallas",
             steady_steps += global_step - epoch_start_step
         logger.log(val_metrics, step=global_step)
 
+        # Every rank computes the same metrics from the gathered outputs.
         if val_metrics[sel_key] > best_val:
             best_val = val_metrics[sel_key]
             epochs_since_improvement = 0
-            _save_model(ckpt_path, model, epoch, val_metrics)
+            if lead:
+                _save_model(ckpt_path, model, epoch, val_metrics)
         else:
             epochs_since_improvement += 1
         if epochs_since_improvement >= patience:
             break
     loop_wall = time.time() - t_loop
 
-    # Reload the best checkpoint and run the test pass (reference :415-433).
-    best = load_checkpoint(ckpt_path)
+    # Reload the best checkpoint and run the test pass (reference :415-433);
+    # under data parallelism rank 0 reads it and hands it to every rank.
+    best = load_checkpoint(ckpt_path) if lead else None
+    if axis is not None:
+        best = axis.from_rank0(best)
     load_variables(model, best)
     test_bm, test_gauc = run_eval_pass("test")
     test_metrics = M.compute_test_metrics(
@@ -540,6 +598,8 @@ def finetune(cfg: config.FinetuneConfig, aggregation: str = "pallas",
     logger.log(test_metrics, step=global_step)
     logger.finish(extra=fidelity_block(epochs, cfg.seed, aggregation, processed_dir,
                                        (cfg.domain_name,)))
+    if axis is not None:
+        axis.barrier()          # rank 0's files are written when any rank returns
     return test_metrics
 
 
@@ -558,6 +618,9 @@ def main() -> None:
                         help="cuda unless given (cpu runs the plain versions)")
     parser.add_argument("--wandb", action="store_true",
                         help="mirror the metrics to wandb (must be installed)")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="under a multi-process launcher: shard each batch's "
+                             "graphs over the node's ranks (graph classification)")
     args = parser.parse_args()
     cfg = config.FinetuneConfig(domain_name=args.domain_name,
                                 finetune_strategy=args.finetune_strategy,
@@ -565,8 +628,8 @@ def main() -> None:
                                 seed=args.seed)
     result = finetune(cfg, aggregation=args.aggregation, epochs=args.epochs,
                       processed_dir=args.processed_dir, out_root=args.out_root,
-                      device=args.device,
-                      use_wandb=args.wandb)
+                      device=args.device, use_wandb=args.wandb,
+                      data_parallel=args.data_parallel)
     print({k: round(v, 4) if isinstance(v, float) else v
            for k, v in result.items()})
 

@@ -34,10 +34,11 @@ class FinetuneGNN(nn.Module):
     ``"csr"`` kernel K3 over the ``BlockCSR`` passed as ``bsr``.
 
     Train-mode dropout draws from ``self.dropout`` (a ``DropoutSource`` on
-    the model's device, seeded 0 until ``seed_dropout``)."""
+    the model's device, seeded 0 until ``seed_dropout``). ``axis`` (a
+    ``parallel.mesh.DataAxis``) makes every BatchNorm a SyncBN."""
 
     def __init__(self, domain_name: str, aggregation: str = "pallas", *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None, axis=None):
         super().__init__()
         device = resolve_device(device)
         gen = init_generator(generator)
@@ -45,8 +46,9 @@ class FinetuneGNN(nn.Module):
         self.aggregation = aggregation
         self.task_type = config.TASK_TYPES[domain_name]
         self.input_encoder = InputEncoder(config.DOMAIN_DIMENSIONS[domain_name],
-                                          generator=gen, device=device)
-        self.gnn_backbone = GINBackbone(aggregation, generator=gen, device=device)
+                                          generator=gen, device=device, axis=axis)
+        self.gnn_backbone = GINBackbone(aggregation, generator=gen, device=device,
+                                        axis=axis)
         c = config.NUM_CLASSES[domain_name]
         if self.task_type == "graph_classification":
             self.classification_head = MLPHead((H, config.FINETUNE_HIDDEN_DIM, c),

@@ -11,7 +11,9 @@ Attribute names are the reference PyTorch model's (``gin_conv.nn.{0,1,3}``,
 ``gin_conv.eps``, ``layers.{i}``), so a ``state_dict`` has its keys.
 Parameters are drawn from an explicit ``torch.Generator`` with
 torch.nn.Linear's U(±1/√fan_in) rule for weight and bias. Train/eval is the
-module's ``training`` flag. Every ReLU is an ``nn.ReLU`` module, so that
+module's ``training`` flag. ``axis`` (a ``parallel.mesh.DataAxis``, the JAX
+modules' ``axis_name``) reaches every BatchNorm, which then runs as SyncBN;
+it adds no parameter or buffer. Every ReLU is an ``nn.ReLU`` module, so that
 ``utils.relu_branches`` can record and replay the side of the kink each unit
 takes. Dropout never reads torch's global generator: every
 ``Dropout`` draws from the explicit generator of its ``DropoutSource`` (one
@@ -131,11 +133,11 @@ class InputEncoder(nn.Module):
     """Per-domain projector (reference: src/models/gnn.py:11-23)."""
 
     def __init__(self, in_features: int, *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None, axis=None):
         super().__init__()
         device = resolve_device(device)
         self.linear = TorchLinear(in_features, H, generator=generator, device=device)
-        self.batch_norm = MaskedBatchNorm(H, device=device)
+        self.batch_norm = MaskedBatchNorm(H, device=device, axis=axis)
         self.relu = nn.ReLU()
         self.dropout = Dropout(config.DROPOUT_RATE)
 
@@ -166,14 +168,15 @@ class GINConv(nn.Module):
     """MLP((1+ε)·h_i + Σ_{j→i} h_j) with a learnable ε (PyG GINConv,
     train_eps=True, starting at 0); the MLP is 256 → 512 (+BN+ReLU) → 256."""
 
-    def __init__(self, *, generator: Optional[torch.Generator] = None, device=None):
+    def __init__(self, *, generator: Optional[torch.Generator] = None, device=None,
+                 axis=None):
         super().__init__()
         device = resolve_device(device)
         gen = init_generator(generator)
         self.eps = nn.Parameter(torch.zeros(1, device=device))
         self.nn = nn.Sequential(
             TorchLinear(H, 2 * H, generator=gen, device=device),
-            MaskedBatchNorm(2 * H, device=device),
+            MaskedBatchNorm(2 * H, device=device, axis=axis),
             nn.ReLU(),
             TorchLinear(2 * H, H, generator=gen, device=device))
 
@@ -189,12 +192,12 @@ class GINLayer(nn.Module):
     """GINConv + residual + BN + ReLU + Dropout (reference: gnn.py:26-43)."""
 
     def __init__(self, aggregation: str = "dense", *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None, axis=None):
         super().__init__()
         device = resolve_device(device)
         self.aggregation = aggregation   # "dense" | "pallas" | "coo" | "csr"
-        self.gin_conv = GINConv(generator=generator, device=device)
-        self.batch_norm = MaskedBatchNorm(H, device=device)
+        self.gin_conv = GINConv(generator=generator, device=device, axis=axis)
+        self.batch_norm = MaskedBatchNorm(H, device=device, axis=axis)
         self.relu = nn.ReLU()
         self.dropout = Dropout(config.DROPOUT_RATE)
 
@@ -211,12 +214,12 @@ class GINBackbone(nn.Module):
     """5 stacked GINLayers (reference: gnn.py:46-54)."""
 
     def __init__(self, aggregation: str = "dense", *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None, axis=None):
         super().__init__()
         device = resolve_device(device)
         gen = init_generator(generator)
         self.layers = nn.ModuleList(
-            GINLayer(aggregation, generator=gen, device=device)
+            GINLayer(aggregation, generator=gen, device=device, axis=axis)
             for _ in range(config.GNN_NUM_LAYERS))
 
     def forward(self, h, node_mask, *, adj=None, senders=None, receivers=None,

@@ -10,6 +10,12 @@ the valid rows only, so they equal the reference's (same rows, same sums):
 The output is multiplied by the mask, so padding rows stay 0. Parameter and
 buffer names are BatchNorm1d's (``weight``, ``bias``, ``running_mean``,
 ``running_var``).
+
+``axis`` (a ``parallel.mesh.DataAxis``) turns on SyncBN, the JAX module's
+``axis_name``: the count n, Σx and Σ(x − mean)² each get one all-reduce over
+the axis (differentiable), so a data-parallel step normalizes with the
+statistics of the global batch, keeps the two-pass variance, and updates
+the running statistics identically on every rank.
 """
 
 from __future__ import annotations
@@ -23,9 +29,10 @@ from gnn_pretraining_tpu_torch.utils.device import resolve_device
 
 class MaskedBatchNorm(nn.Module):
     def __init__(self, features: int, momentum: float = config.BN_MOMENTUM,
-                 eps: float = config.BN_EPS, *, device=None):
+                 eps: float = config.BN_EPS, *, device=None, axis=None):
         super().__init__()
         device = resolve_device(device)
+        self.axis = axis
         self.momentum = momentum
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features, device=device))
@@ -43,11 +50,16 @@ class MaskedBatchNorm(nn.Module):
                 m = None
                 n = torch.tensor(float(x.shape[0]), dtype=x.dtype, device=x.device)
                 sum_x = x.sum(0)
+            if self.axis is not None:
+                n, sum_x = self.axis.psum(n), self.axis.psum(sum_x)
             n = torch.clamp(n, min=1.0)
             mean = sum_x / n
             dev = x - mean
             sq = dev * dev if m is None else dev * dev * m
-            var = sq.sum(0) / n
+            sum_sq = sq.sum(0)
+            if self.axis is not None:
+                sum_sq = self.axis.psum(sum_sq)
+            var = sum_sq / n
             with torch.no_grad():
                 unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
                 self.running_mean.copy_((1 - self.momentum) * self.running_mean

@@ -53,11 +53,12 @@ SHARED_HEADS = {"link_pred": MLPLinkPredictor, "domain_adv": DomainClassifierHea
 class PretrainableGNN(nn.Module):
     """``aggregation`` as in ``FinetuneGNN`` (``"pallas"`` is K1). Train-mode
     dropout draws from ``self.dropout`` (a ``DropoutSource`` on the model's
-    device, seeded 0 until ``seed_dropout``)."""
+    device, seeded 0 until ``seed_dropout``). ``axis`` (a
+    ``parallel.mesh.DataAxis``) makes every BatchNorm a SyncBN."""
 
     def __init__(self, domain_names: Sequence[str], task_names: Sequence[str],
                  aggregation: str = "pallas", *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None, axis=None):
         super().__init__()
         unknown = set(task_names) - set(HEAD_DIMS) - set(SHARED_HEADS)
         if unknown:
@@ -68,11 +69,13 @@ class PretrainableGNN(nn.Module):
         self.task_names = tuple(task_names)
         self.aggregation = aggregation
         self.input_encoders = nn.ModuleDict({
-            d: InputEncoder(config.DOMAIN_DIMENSIONS[d], generator=gen, device=device)
+            d: InputEncoder(config.DOMAIN_DIMENSIONS[d], generator=gen, device=device,
+                            axis=axis)
             for d in self.domain_names})
         self.mask_token = nn.Parameter(
             (config.MASK_TOKEN_INIT_STD * torch.randn(H, generator=gen)).to(device))
-        self.gnn_backbone = GINBackbone(aggregation, generator=gen, device=device)
+        self.gnn_backbone = GINBackbone(aggregation, generator=gen, device=device,
+                                        axis=axis)
         for task, dims in HEAD_DIMS.items():
             if task in self.task_names:
                 setattr(self, f"heads_{task}", nn.ModuleDict({

@@ -5,8 +5,9 @@ plain f32 matrix product (full f32 while
 ``torch.backends.cuda.matmul.allow_tf32`` is False). ``nt_xent_loss`` is the
 single-device formula: it materializes the [2N, 2N] similarity matrix, and it
 is the plain version of the whole function that kernel K2 computes without
-it (``ops/ntxent.py``). The multi-device row gather of the JAX function
-(``axis_name``) is not ported yet.
+it (``ops/ntxent.py``). With ``axis`` (a ``parallel.mesh.DataAxis``, the JAX
+function's ``axis_name``) the rows of every rank are gathered first, so that
+each rank computes the loss over the global pair set.
 """
 
 from __future__ import annotations
@@ -35,14 +36,25 @@ def cosine_similarity_matrix(a: torch.Tensor,
     return a @ b.t()
 
 
+def gather_pairs(z1: torch.Tensor, z2: torch.Tensor, valid: torch.Tensor, axis):
+    """``z1``, ``z2`` and ``valid`` (as f32) of every rank of ``axis``, stacked
+    rank-major (JAX sddmm.py:48-51); as given without an axis."""
+    if axis is None:
+        return z1, z2, valid
+    return (axis.gather_rows(z1), axis.gather_rows(z2),
+            axis.gather_rows(valid.to(torch.float32)))
+
+
 def nt_xent_loss(z1: torch.Tensor, z2: torch.Tensor, temperature,
-                 valid: torch.Tensor):
+                 valid: torch.Tensor, axis=None):
     """SimCLR NT-Xent over padded pair batches; returns (sum_loss, num_rows).
 
     Reference semantics on the valid rows (src/pretrain/tasks.py:192-213):
     rows = [z1; z2], similarity = normalized dot / τ with the diagonal and the
     invalid columns masked out, positives at offset N, cross-entropy summed
-    over the 2N valid rows. ``valid`` is the shared row validity of z1/z2."""
+    over the 2N valid rows. ``valid`` is the shared row validity of z1/z2;
+    with ``axis`` over the rows of every rank (``gather_pairs``)."""
+    z1, z2, valid = gather_pairs(z1, z2, valid, axis)
     n = z1.shape[0]
     z = torch.cat([l2_normalize(z1), l2_normalize(z2)], dim=0)
     vv = torch.cat([valid, valid], dim=0).bool()

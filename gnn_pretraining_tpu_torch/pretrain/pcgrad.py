@@ -15,10 +15,14 @@ src/pretrain/gradient_surgery.py:41-103), with its semantics:
   * ``gradient_surgery/total_conflicts``, ``total_projections`` and
     ``conflict_ratio``.
 
-Each task's leaves are laid end to end in one vector, and a per-leaf dot
-product is one ``index_add_`` over the leaf ids, so a step costs a few
-kernels per task pair, not a few per leaf. (The JAX package pads each leaf
-to 512-wide blocks for the TPU; that layout is not needed here.)
+Each task's leaves are laid end to end in one vector, every leaf padded with
+zeros to a multiple of ``_BLOCK``, as the JAX package lays them out, and the
+vector is viewed as [blocks, _BLOCK]: a per-leaf dot product is a row sum
+over the blocks and one [leaves, blocks] 0/1 matrix product, so a step costs
+a few kernels per task pair, not a few per leaf. Neither uses atomics, so
+the result is the same bit for bit on every call with the same inputs, on
+the card too: every rank of a data-parallel step combines its (all-reduced,
+equal) gradients alike and the ranks' parameters stay equal.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+
+_BLOCK = 512   # every leaf is padded to a multiple of it
 
 
 def task_participates(top_key: str, task: str) -> bool:
@@ -57,12 +64,16 @@ def apply_pcgrad(task_grads: Dict[str, List[torch.Tensor]], top_keys: Sequence[s
     first = task_grads[names[0]]
     device = first[0].device
     sizes = [g.numel() for g in first]
-    leaf_id = torch.repeat_interleave(
-        torch.arange(len(sizes)), torch.tensor(sizes)).to(device)
+    blocks = [-(-n // _BLOCK) for n in sizes]
+    blk_id = torch.repeat_interleave(torch.arange(len(sizes)),
+                                     torch.tensor(blocks)).to(device)            # [B]
+    onehot = (blk_id[None, :] == torch.arange(len(sizes), device=device)[:, None]
+              ).to(first[0].dtype)                                              # [L, B]
     part = torch.tensor([[float(task_participates(key, t)) for key in top_keys]
                          for t in names], device=device)              # [K, L]
-    flat = torch.stack([torch.cat([g.reshape(-1) for g in task_grads[t]])
-                        for t in names])                             # [K, P]
+    flat = torch.stack([torch.cat([F.pad(g.reshape(-1), (0, b * _BLOCK - n))
+                                   for g, n, b in zip(task_grads[t], sizes, blocks)])
+                        for t in names]).view(k, -1, _BLOCK)          # [K, B, T]
 
     if perm is None:
         perm = torch.randperm(k, generator=generator)
@@ -71,7 +82,7 @@ def apply_pcgrad(task_grads: Dict[str, List[torch.Tensor]], top_keys: Sequence[s
     part_p = part[perm]
 
     def leaf_dot(a, b):
-        return torch.zeros(len(sizes), device=device).index_add_(0, leaf_id, a * b)
+        return onehot @ (a * b).sum(1)
 
     modified = [g_orig[i] for i in range(k)]
     conflicts = torch.zeros((), device=device)
@@ -83,14 +94,15 @@ def apply_pcgrad(task_grads: Dict[str, List[torch.Tensor]], top_keys: Sequence[s
             valid = (ni2 > 0) & (nj2 > 0)
             conflict = valid & (dot < 0)
             coef = torch.where(conflict, dot / torch.where(nj2 > 0, nj2, 1.0), 0.0)
-            modified[i] = gi - coef[leaf_id] * gj
+            modified[i] = gi - coef[blk_id][:, None] * gj
             conflicts = conflicts + conflict.sum()
             projections = projections + valid.sum()
 
     denom = torch.clamp(part_p.sum(0), min=1.0)                      # [L]
-    acc = sum(modified[i] * part_p[i][leaf_id] for i in range(k))
-    combined = acc / denom[leaf_id]
-    leaves = [c.view_as(g) for c, g in zip(torch.split(combined, sizes), first)]
+    acc = sum(modified[i] * part_p[i][blk_id][:, None] for i in range(k))
+    combined = torch.split((acc / denom[blk_id][:, None]).reshape(-1),
+                           [b * _BLOCK for b in blocks])
+    leaves = [c[:n].view_as(g) for c, n, g in zip(combined, sizes, first)]
     metrics = {
         "gradient_surgery/total_conflicts": conflicts,
         "gradient_surgery/total_projections": projections,

@@ -40,9 +40,18 @@ loss, the combined gradient and the updated parameters of each step, and
 every eval loss, and raises ``FloatingPointError`` at the first non-finite
 one; a NaN first made by a backward op raises it too, naming the op.
 
+``data_parallel=True`` (``--data_parallel``, the drivers' ``--dp auto``) runs
+the step on every rank of the data axis (``parallel.mesh.make_mesh``: the
+group passed as ``axis``, else a launcher's node) when it has more than one
+rank, else the single-device path, as the JAX package does on one device:
+each rank takes its share of every batch (``parallel.data_parallel``), the
+model's BatchNorms are SyncBNs, and the ranks' parameters stay equal. Rank 0
+alone evaluates (every rank then takes its total) and writes the log, the
+checkpoint, the summary and the resume file, which holds every rank's
+random streams; every rank restores the same state from it.
+
 Every scheme of ``config.ALL_SCHEMES`` runs. Left for later: the chunked
-``lax.scan`` runner (its per-step semantics are these) and
-``--data_parallel``.
+``lax.scan`` runner (its per-step semantics are these).
 """
 
 from __future__ import annotations
@@ -62,6 +71,12 @@ from gnn_pretraining_tpu_torch.data.loaders import (
     create_pretrain_val_loader,
 )
 from gnn_pretraining_tpu_torch.models.pretrain_model import PretrainableGNN
+from gnn_pretraining_tpu_torch.parallel.data_parallel import (
+    dp_pads,
+    rank_seed,
+    shard_sampler_step,
+)
+from gnn_pretraining_tpu_torch.parallel.mesh import make_mesh
 from gnn_pretraining_tpu_torch.pretrain.augmentations import ViewSource
 from gnn_pretraining_tpu_torch.pretrain.balancer import balance_losses, np_balance
 from gnn_pretraining_tpu_torch.pretrain.optimizers import (
@@ -89,7 +104,7 @@ from gnn_pretraining_tpu_torch.utils.convert import (
 )
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
 from gnn_pretraining_tpu_torch.utils.fidelity import fidelity_block
-from gnn_pretraining_tpu_torch.utils.logging import MetricLogger
+from gnn_pretraining_tpu_torch.utils.logging import MetricLogger, SilentLogger
 from gnn_pretraining_tpu_torch.utils.profiling import (
     ThroughputMeter,
     check_finite,
@@ -109,27 +124,35 @@ class PretrainState:
     balancer_step: int = 0   # the balancer's step count
 
 
+def _stream_seed(seed: int, axis) -> int:
+    """``seed``, or under data parallelism the rank's own (``rank_seed``)."""
+    return seed if axis is None else rank_seed(seed, axis.rank)
+
+
 def build_pretrain_model(cfg: config.PretrainConfig, aggregation: str,
-                         device) -> PretrainableGNN:
-    """Initialised from ``cfg.seed``; dropout seeded ``cfg.seed + 1``."""
+                         device, axis=None) -> PretrainableGNN:
+    """Initialised from ``cfg.seed``; dropout seeded ``cfg.seed + 1`` (on a
+    rank of ``axis``, the rank's seed of it); SyncBN over ``axis``."""
     model = PretrainableGNN(cfg.pretrain_domains, cfg.active_tasks, aggregation,
                             generator=torch.Generator().manual_seed(cfg.seed),
-                            device=device)
-    model.seed_dropout(cfg.seed + 1)
+                            device=device, axis=axis)
+    model.seed_dropout(_stream_seed(cfg.seed + 1, axis))
     return model
 
 
 def random_streams(cfg: config.PretrainConfig, model: PretrainableGNN,
-                   device) -> Dict[str, Any]:
+                   device, axis=None) -> Dict[str, Any]:
     """Every random stream of a run, seeded from ``cfg.seed``: the sampler's
     numpy generator (seed), the model's dropout (seed + 1, set by
     ``build_pretrain_model``), the views (seed + 2), PCGrad's task order
-    (seed + 3, on the CPU) and the masks and negatives (seed + 4)."""
+    (seed + 3, on the CPU) and the masks and negatives (seed + 4). On a rank
+    of ``axis`` the dropout, views, masks and negatives take the rank's
+    seeds; the sampler and PCGrad are the same on every rank."""
     return {"sampler": np.random.default_rng(cfg.seed),
             "dropout": model.dropout,
-            "views": ViewSource(device, seed=cfg.seed + 2),
+            "views": ViewSource(device, seed=_stream_seed(cfg.seed + 2, axis)),
             "pcgrad": torch.Generator().manual_seed(cfg.seed + 3),
-            "task_draws": TaskDraws(device, seed=cfg.seed + 4)}
+            "task_draws": TaskDraws(device, seed=_stream_seed(cfg.seed + 4, axis))}
 
 
 def stream_states(streams: Dict[str, Any]) -> Dict[str, Any]:
@@ -163,9 +186,16 @@ def restore_streams(streams: Dict[str, Any], states: Dict[str, Any]) -> None:
 
 def save_resume_state(path, model: PretrainableGNN, optimizer, cfg: config.PretrainConfig,
                       state: PretrainState, streams: Dict[str, Any], epoch: int,
-                      best_total: float, epochs_since_improvement: int) -> None:
+                      best_total: float, epochs_since_improvement: int, axis=None) -> None:
     """Write the run's train state after ``epoch`` (``utils.checkpoint.
-    save_train_state``; the stream states under ``extra``)."""
+    save_train_state``; the stream states under ``extra``). Under ``axis``
+    every rank calls it, and rank 0 writes every rank's stream states too
+    (``extra["rank_streams"]``)."""
+    extra = {"streams": stream_states(streams)}
+    if axis is not None:
+        extra["rank_streams"] = axis.all_objects(extra["streams"])
+        if axis.rank:
+            return
     variables = model_variables(model)
     opt_state = adamw_to_opt_state(model, optimizer, param_labels(model, cfg.active_tasks),
                                    ["default", *cfg.active_tasks])
@@ -173,33 +203,42 @@ def save_resume_state(path, model: PretrainableGNN, optimizer, cfg: config.Pretr
                 "epoch": epoch, "best_total": best_total,
                 "epochs_since_improvement": epochs_since_improvement}
     save_train_state(path, variables["params"], variables["batch_stats"], opt_state,
-                     counters, extra={"streams": stream_states(streams)})
+                     counters, extra=extra)
 
 
 def load_resume_state(path, model: PretrainableGNN, optimizer, cfg: config.PretrainConfig,
-                      streams: Dict[str, Any]) -> Dict[str, Any]:
+                      streams: Dict[str, Any], axis=None) -> Dict[str, Any]:
     """Restore a train-state file onto ``model``, ``optimizer`` and
     ``streams`` in place and return its counters. Raises, naming the key,
-    where the file does not fit the model. A file without stream states (the
-    JAX package's) leaves the streams at their seeds, and says so."""
+    where the file does not fit the model. A rank of ``axis`` takes its own
+    stream states from a file of a run on as many ranks. A file without
+    stream states for this process (the JAX package's, or one of another
+    number of ranks) leaves the streams at their seeds, and says so."""
     payload = load_train_state(path)
     load_variables(model, {"params": payload["params"],
                            "batch_stats": payload["batch_stats"]})
     load_adamw_state(payload["opt_state"], model, optimizer,
                      param_labels(model, cfg.active_tasks), ["default", *cfg.active_tasks])
-    if "streams" in payload["extra"]:
-        restore_streams(streams, payload["extra"]["streams"])
+    extra = payload["extra"]
+    if axis is None:
+        states = extra.get("streams")
     else:
-        print(f"{path} holds no random-stream states (a JAX package file): "
+        ranks = extra.get("rank_streams") or []
+        states = ranks[axis.rank] if len(ranks) == axis.size else None
+    if states is not None:
+        restore_streams(streams, states)
+    else:
+        print(f"{path} holds no random-stream states for this process: "
               "the streams start from their seeds", flush=True)
     return payload["counters"]
 
 
 def _context(step: int, total_steps: int, views: ViewSource, draws: TaskDraws,
-             device) -> TaskContext:
+             device, axis=None) -> TaskContext:
     temp = torch.tensor([temperature_at(step, total_steps)], device=device)
     lam = torch.tensor([grl_lambda_at(step, total_steps)], device=device)
-    return TaskContext(temperature=temp, views=views, grl_lambda=lam, draws=draws)
+    return TaskContext(temperature=temp, views=views, grl_lambda=lam, draws=draws,
+                       axis=axis)
 
 
 def _task_grad(loss: torch.Tensor, params, step: int, task: str):
@@ -218,7 +257,7 @@ def _task_grad(loss: torch.Tensor, params, step: int, task: str):
 def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimizer,
                     total_steps: int, views: ViewSource,
                     pcgrad_generator: Optional[torch.Generator] = None,
-                    draws: Optional[TaskDraws] = None):
+                    draws: Optional[TaskDraws] = None, axis=None):
     """``train_step(state, domain_batches, perm=None) -> metrics`` (device
     tensors). It updates the model, the optimizer and ``state``; ``perm``
     replaces PCGrad's draw of the task order; ``draws`` hands node-feature
@@ -229,7 +268,10 @@ def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimize
     among them. Under ``utils.profiling.enable_nan_checks`` each task loss,
     the combined gradient and the updated parameters are checked
     (``FloatingPointError`` at the first non-finite value, naming the step,
-    counted from 0, and the task or parameter)."""
+    counted from 0, and the task or parameter). With ``axis`` (a
+    ``parallel.mesh.DataAxis``; ``model`` built on it) the step is the
+    data-parallel one (``parallel.data_parallel``): each task's gradient is
+    averaged over the ranks, and the task gradients kept are those."""
     tasks = [t for t in cfg.active_tasks if t != "domain_adv"]
     has_da = "domain_adv" in cfg.active_tasks
     names = [n for n, _ in model.named_parameters()]
@@ -240,7 +282,7 @@ def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimize
 
     def train_step(state: PretrainState, domain_batches, perm=None):
         model.train()
-        ctx = _context(state.opt_step, total_steps, views, draws, device)
+        ctx = _context(state.opt_step, total_steps, views, draws, device, axis)
         task_losses, per_domain_task, grads = {}, {}, {}
         checked = nan_checks_enabled()
         where = f"train step {state.opt_step}" if checked else None
@@ -251,6 +293,8 @@ def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimize
             g = _task_grad(loss, params, state.opt_step, t)
             grads[t] = [torch.zeros_like(p) if gi is None else gi
                         for p, gi in zip(params, g)]
+            if axis is not None:
+                grads[t] = axis.pmean(grads[t])
             task_losses[t] = loss.detach()
             per_domain_task[t] = {d: v.detach() for d, v in per_domain.items()}
 
@@ -361,39 +405,57 @@ def run_evaluation(eval_fn, state: PretrainState, cfg, val_loaders, logger,
 def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
              epochs: int = config.PRETRAIN_EPOCHS, processed_dir=None,
              use_wandb: bool = False, resume: bool = False, out_root=None,
-             device=None) -> Dict[str, object]:
+             device=None, data_parallel: bool = False, axis=None) -> Dict[str, object]:
     """Pretrain one scheme and return ``{best_val_total, epochs, checkpoint}``.
 
     Runs on the card unless ``device="cpu"``. Checkpoints (and, with
     ``resume``, the resume file) go to ``out_root/pretrain``, metrics to
     ``out_root/metrics``. A resume file written at the last epoch leaves
-    nothing to train: the summary is written and ``epochs`` is that epoch."""
+    nothing to train: the summary is written and ``epochs`` is that epoch.
+    ``data_parallel`` on ``axis`` (else ``make_mesh(device)``): see the
+    module docstring."""
     device = resolve_device(device)
+    axis = (axis or make_mesh(device)) if data_parallel else None
+    if axis is not None and axis.size == 1:
+        axis = None                      # one rank: the single-device path
+    if axis is not None:
+        device = axis.device
+    lead = axis is None or axis.rank == 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
 
     out_root = Path(out_root or config.OUTPUT_DIR)
-    (out_root / "pretrain").mkdir(parents=True, exist_ok=True)
     ckpt_path = out_root / "pretrain" / f"model_{cfg.run_name}.msgpack"
     resume_path = out_root / "pretrain" / f"resume_{cfg.run_name}.msgpack"
-    logger = MetricLogger(config.PRETRAIN_PROJECT_NAME, cfg.run_name,
-                          out_dir=out_root / "metrics", use_wandb=use_wandb)
+    logger = SilentLogger()
+    if lead:
+        (out_root / "pretrain").mkdir(parents=True, exist_ok=True)
+        logger = MetricLogger(config.PRETRAIN_PROJECT_NAME, cfg.run_name,
+                              out_dir=out_root / "metrics", use_wandb=use_wandb)
 
-    model = build_pretrain_model(cfg, aggregation, device)
+    model = build_pretrain_model(cfg, aggregation, device, axis)
     optimizer, _, _ = create_task_specific_optimizer(model, cfg.active_tasks)
-    streams = random_streams(cfg, model, device)
+    streams = random_streams(cfg, model, device, axis)
     val_loaders = {d: [b.to(device) for b in
                        create_pretrain_val_loader(d, processed_dir=processed_dir)]
-                   for d in cfg.pretrain_domains}
+                   for d in cfg.pretrain_domains} if lead else {}
     train_loader = create_pretrain_train_loader(cfg.pretrain_domains, streams["sampler"],
                                                 processed_dir=processed_dir)
     steps_per_epoch = len(train_loader)
     total_steps = steps_per_epoch * epochs
+    if axis is None:
+        train_batches = train_loader.__iter__
+    else:
+        pads = dp_pads(train_loader, axis.size)
+
+        def train_batches():
+            for _ in range(steps_per_epoch):
+                yield shard_sampler_step(train_loader, axis.size, axis.rank, pads)
 
     state = PretrainState()
     train_step = make_train_step(model, cfg, optimizer, total_steps, streams["views"],
-                                 streams["pcgrad"], streams["task_draws"])
+                                 streams["pcgrad"], streams["task_draws"], axis=axis)
     eval_fn = make_eval_fn(model, cfg, total_steps, streams["views"], streams["task_draws"])
 
     # Aggregations per step and domain: two views per contrastive task.
@@ -412,7 +474,7 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
         for (step, epoch_of, _, edges), row in zip(pending, values):
             m = {k: float(v) for k, v in zip(keys, row)}
             m["train/progress/epoch"] = epoch_of
-            meter.update(edges, forwards * config.GNN_NUM_LAYERS)
+            meter.update(float(edges), forwards * config.GNN_NUM_LAYERS)
             m.update(meter.metrics())
             logger.log(m, step=step)
         pending.clear()
@@ -422,49 +484,61 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
     global_step = 0
     start_epoch = 1
     if resume and resume_path.exists():
-        counters = load_resume_state(resume_path, model, optimizer, cfg, streams)
+        counters = load_resume_state(resume_path, model, optimizer, cfg, streams, axis)
         state.opt_step, state.balancer_step = counters["opt_step"], counters["balancer_step"]
         start_epoch = counters["epoch"] + 1
         best_total = counters["best_total"]
         epochs_since_improvement = counters["epochs_since_improvement"]
         global_step = counters["opt_step"]
-        print(f"resumed {cfg.run_name} at epoch {start_epoch} "
-              f"(best_val={best_total:.4f})", flush=True)
+        if lead:
+            print(f"resumed {cfg.run_name} at epoch {start_epoch} "
+                  f"(best_val={best_total:.4f})", flush=True)
     first_step = global_step + 1
 
     epoch = start_epoch - 1          # the loop is empty after a last-epoch resume
     for epoch in range(start_epoch, epochs + 1):
-        for host_batches in train_loader:
+        for host_batches in train_batches():
             global_step += 1
             edges = int(sum(float(b.edge_mask.sum()) for b in host_batches.values()))
+            if axis is not None:        # the global batch's: every rank's share
+                edges = axis.psum(torch.tensor([float(edges)], device=device))
             batches = {d: b.to(device) for d, b in host_batches.items()}
-            pending.append((global_step, epoch, train_step(state, batches), edges))
+            metrics = train_step(state, batches)
+            if lead:
+                pending.append((global_step, epoch, metrics, edges))
             if len(pending) >= FLUSH_EVERY:
                 flush_pending()
             if global_step == first_step:
                 meter.reset()            # the first step's warm-up is not counted
         flush_pending()
 
-        total, val_metrics, state.balancer_step = run_evaluation(
-            eval_fn, state, cfg, val_loaders, logger, global_step)
-        print(f"[{cfg.run_name} +{time.time() - t_start:7.1f}s] epoch {epoch}: "
-              f"{steps_per_epoch} steps, val_total={total:.4f}", flush=True)
+        if lead:
+            total, val_metrics, state.balancer_step = run_evaluation(
+                eval_fn, state, cfg, val_loaders, logger, global_step)
+            print(f"[{cfg.run_name} +{time.time() - t_start:7.1f}s] epoch {epoch}: "
+                  f"{steps_per_epoch} steps, val_total={total:.4f}", flush=True)
+        if axis is not None:            # rank 0's evaluation decides for every rank
+            total, state.balancer_step = axis.from_rank0(
+                (total, state.balancer_step) if lead else None)
         if total < best_total:
             best_total = total
             epochs_since_improvement = 0
-            variables = model_variables(model)
-            save_checkpoint(ckpt_path, variables["params"], variables["batch_stats"],
-                            epoch, val_metrics)
+            if lead:
+                variables = model_variables(model)
+                save_checkpoint(ckpt_path, variables["params"], variables["batch_stats"],
+                                epoch, val_metrics)
         else:
             epochs_since_improvement += 1
         if resume and (epoch % RESUME_EVERY == 0 or epoch == epochs):
             save_resume_state(resume_path, model, optimizer, cfg, state, streams, epoch,
-                              best_total, epochs_since_improvement)
+                              best_total, epochs_since_improvement, axis)
         if epochs_since_improvement >= int(epochs * config.PRETRAIN_PATIENCE_FRACTION):
             break
 
     logger.finish(extra=fidelity_block(epochs, cfg.seed, aggregation, processed_dir,
                                        cfg.pretrain_domains))
+    if axis is not None:
+        axis.barrier()          # rank 0's files are written when any rank returns
     return {"best_val_total": best_total, "epochs": epoch, "checkpoint": str(ckpt_path)}
 
 
@@ -488,13 +562,18 @@ def main(argv=None) -> None:
     parser.add_argument("--debug_nans", action="store_true",
                         help="anomaly mode and a finite check of every loss, "
                              "gradient and update; raise at the first NaN")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="under a multi-process launcher: shard each step's "
+                             "graphs over the node's ranks (one rank: the "
+                             "single-device path)")
     args = parser.parse_args(argv)
     if args.debug_nans:
         enable_nan_checks()
     cfg = config.PretrainConfig(exp_name=args.exp_name, seed=args.seed)
     print(pretrain(cfg, aggregation=args.aggregation, epochs=args.epochs,
                    processed_dir=args.processed_dir, use_wandb=args.wandb,
-                   resume=args.resume, out_root=args.out_root, device=args.device))
+                   resume=args.resume, out_root=args.out_root, device=args.device,
+                   data_parallel=args.data_parallel))
 
 
 if __name__ == "__main__":

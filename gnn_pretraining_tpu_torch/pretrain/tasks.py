@@ -34,6 +34,15 @@ the order of the JAX step's BatchNorm updates and random draws.
 choices come from the context: views from a ``ViewSource``, mask scores and
 negative-sampling uniforms from a ``TaskDraws``; both draw from generators on
 the batches' device or hand out draws injected by a test.
+
+With a data axis in the context (``TaskContext.axis``, a
+``parallel.mesh.DataAxis``, the JAX context's ``axis_name``) each rank holds
+its share of every domain's graphs, and a task computes the loss of the
+global batch on every rank: the additive tasks sum their per-domain loss
+sums and sizes over the ranks (``_preduce``), and the contrastive tasks
+gather their projections over the ranks and compute NT-Xent over all the
+rows, through K2 as on one device (the JAX package takes its plain formula
+under an axis); the model's BatchNorms are then SyncBNs.
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ from gnn_pretraining_tpu_torch.ops.sampling import (
     draw_negatives,
     masked_randperm_select,
 )
-from gnn_pretraining_tpu_torch.ops.sddmm import nt_xent_loss
+from gnn_pretraining_tpu_torch.ops.sddmm import gather_pairs, nt_xent_loss
 from gnn_pretraining_tpu_torch.ops.segment import (
     segment_max,
     segment_mean,
@@ -116,12 +125,19 @@ class TaskContext(NamedTuple):
     views: ViewSource           # the contrastive tasks' augmented views
     grl_lambda: torch.Tensor    # [1] f32: domain-adversarial gradient reversal
     draws: TaskDraws            # node-feature masks and negative pairs
+    axis: Optional[object] = None   # a parallel.mesh.DataAxis: data parallelism
 
 
-def _nt_xent(z1, z2, temperature, valid):
+def _nt_xent(z1, z2, temperature, valid, axis):
+    z1, z2, valid = gather_pairs(z1, z2, valid, axis)
     if config.FUSED_NTXENT and z1.shape[0] >= config.FUSED_NTXENT_MIN_ROWS:
         return nt_xent(z1, z2, temperature, valid)
     return nt_xent_loss(z1, z2, temperature, valid)
+
+
+def _preduce(x, axis):
+    """``x`` summed over the ranks of ``axis``; as given without one."""
+    return axis.psum(x) if axis is not None else x
 
 
 def _safe_div(a, b):
@@ -190,7 +206,8 @@ def _node_feat_mask(model, domain, batch, ctx):
                            edge_mask=batch.edge_mask)
     rec = model.head("node_feat_mask", domain, h)
     mask_f = mask.to(torch.float32)
-    return (((rec - h0) ** 2).sum(dim=1) * mask_f).sum(), mask_f.sum() * H
+    return (_preduce((((rec - h0) ** 2).sum(dim=1) * mask_f).sum(), ctx.axis),
+            _preduce(mask_f.sum(), ctx.axis) * H)
 
 
 def _link_pred(model, domain, batch, ctx):
@@ -208,7 +225,8 @@ def _link_pred(model, domain, batch, ctx):
     labels = torch.cat([torch.ones(e, device=h.device), torch.zeros(e, device=h.device)])
     mask = torch.cat([batch.edge_mask, batch.edge_mask])
     z = model.heads_link_pred(h, senders, receivers, return_logits=True)
-    return (bce_with_logits(z, labels) * mask).sum(), mask.sum()
+    return (_preduce((bce_with_logits(z, labels) * mask).sum(), ctx.axis),
+            _preduce(mask.sum(), ctx.axis))
 
 
 def _node_contrast(model, domain, batch, ctx):
@@ -218,8 +236,8 @@ def _node_contrast(model, domain, batch, ctx):
     h2 = _view_forward(model, batch, v2, domain)
     z1 = model.head("node_contrast", domain, h1)
     z2 = model.head("node_contrast", domain, h2)
-    loss_sum, rows = _nt_xent(z1, z2, ctx.temperature, common)
-    valid = (common.sum() >= 2).to(torch.float32)     # (:173-175)
+    loss_sum, rows = _nt_xent(z1, z2, ctx.temperature, common, ctx.axis)
+    valid = (_preduce(common.sum(), ctx.axis) >= 2).to(torch.float32)     # (:173-175)
     return loss_sum * valid, rows * valid
 
 
@@ -236,8 +254,8 @@ def _graph_contrast(model, domain, batch, ctx):
     h2 = _view_forward(model, batch, v2, domain)
     z1 = model.head("graph_contrast", domain, _pool(h1, batch, v1))
     z2 = model.head("graph_contrast", domain, _pool(h2, batch, v2))
-    loss_sum, rows = _nt_xent(z1, z2, ctx.temperature, batch.graph_mask)
-    valid = (batch.graph_mask.sum() >= 2).to(torch.float32)   # (:231-234)
+    loss_sum, rows = _nt_xent(z1, z2, ctx.temperature, batch.graph_mask, ctx.axis)
+    valid = (_preduce(batch.graph_mask.sum(), ctx.axis) >= 2).to(torch.float32)  # (:231-234)
     return loss_sum * valid, rows * valid
 
 
@@ -247,7 +265,8 @@ def _graph_prop(model, domain, batch, ctx):
     graph_emb = segment_mean(h, batch.node_graph, batch.num_graphs, batch.node_mask)
     preds = model.head("graph_prop", domain, graph_emb)
     sq = ((preds - batch.graph_properties) ** 2).sum(dim=1) * batch.graph_mask
-    return sq.sum(), batch.graph_mask.sum() * config.GRAPH_PROPERTY_DIM
+    return (_preduce(sq.sum(), ctx.axis),
+            _preduce(batch.graph_mask.sum(), ctx.axis) * config.GRAPH_PROPERTY_DIM)
 
 
 def _domain_adv(model, domain, batch, ctx):
@@ -260,7 +279,7 @@ def _domain_adv(model, domain, batch, ctx):
     labels = torch.full((batch.num_graphs,), model.domain_names.index(domain),
                         dtype=torch.long, device=h.device)
     loss_sum, _ = segment_softmax_ce(logits, labels, batch.graph_mask)
-    return loss_sum, batch.graph_mask.sum()
+    return _preduce(loss_sum, ctx.axis), _preduce(batch.graph_mask.sum(), ctx.axis)
 
 
 node_feat_mask_loss = _over_domains(_node_feat_mask)

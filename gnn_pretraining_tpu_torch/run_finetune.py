@@ -26,8 +26,15 @@ clears the caches past the RSS bound, as there.
 
 Runs on the card unless ``--device cpu`` (under a launcher,
 ``cuda:LOCAL_RANK``), resolved once before the grid; writes under
-``config.OUTPUT_DIR`` (``outputs/torch/``) unless ``--out_root``. Not
-ported: ``--dp`` and ``--partition`` (the multi-device slice).
+``config.OUTPUT_DIR`` (``outputs/torch/``) unless ``--out_root``.
+
+``--dp auto`` forms the data axis as ``run_pretrain`` does and runs each
+graph-classification cell data-parallel
+(``finetune(data_parallel=True)``, ``finetune/gc_data_parallel.py``); a
+node or link cell has no data-parallel path and runs on rank 0 of the axis
+alone, while the other ranks go on to the next cell and wait for it there.
+Not ported: ``--partition`` (the edge- and node-partitioned full-graph
+modes); it is refused.
 """
 
 from __future__ import annotations
@@ -43,15 +50,18 @@ import torch
 
 from gnn_pretraining_tpu_torch import config
 from gnn_pretraining_tpu_torch.finetune.finetune import finetune
+from gnn_pretraining_tpu_torch.parallel.mesh import close_mesh
 from gnn_pretraining_tpu_torch.run_pretrain import (
     add_common_args,
     child_flags,
+    data_axis,
     launcher_device,
     metrics_root,
     run_isolated,
     shard_grid,
     shard_label,
     slice_grid,
+    spawn_dp_ranks,
 )
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
 from gnn_pretraining_tpu_torch.utils.fidelity import cell_completed as summary_completed
@@ -107,16 +117,24 @@ def run_grid(grid, args, device: torch.device) -> list:
             print(f"{tag}: SKIPPED — pretrain {scheme}_{seed} has no completed-fidelity "
                   "marker", flush=True)
             continue
+        axis = data_axis(args, device)
+        dp = axis is not None and axis.size > 1
+        sharded = dp and cfg.task_type == "graph_classification"
+        if dp and not sharded and axis.rank:
+            print(f"{tag}: no data-parallel path, runs on rank 0", flush=True)
+            continue
         print(f"{tag}: starting", flush=True)
         t0 = time.time()
         try:
             res = finetune(cfg, aggregation=args.aggregation, processed_dir=args.processed_dir,
                            epochs=args.epochs, out_root=args.out_root, device=device,
-                           use_wandb=args.wandb)
+                           use_wandb=args.wandb, data_parallel=sharded, axis=axis)
             key = "test/auc" if cfg.task_type == "link_prediction" else "test/accuracy"
             print(f"{tag}: {key}={res[key]:.4f} ({time.time() - t0:.0f}s)", flush=True)
         except Exception:
             traceback.print_exc()
+            if sharded:
+                raise
             failed.append(cfg.run_name)
             print(f"{tag}: FAILED", flush=True)
         # As in run_pretrain.run_sweep: free the finished cell before the next.
@@ -142,7 +160,13 @@ def main(argv=None) -> int:
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--aggregation", type=str, default="pallas",
                         choices=["dense", "pallas", "coo", "csr"])
+    parser.add_argument("--partition", type=str, default="none",
+                        choices=["none", "edge", "node"],
+                        help="not ported yet: only 'none' is accepted")
     args = parser.parse_args(argv)
+    if args.partition != "none":
+        parser.error(f"--partition {args.partition}: the edge- and node-partitioned "
+                     "full-graph modes are not ported yet (only --dp auto is)")
     if args.sweep:
         grid = full_grid()
     elif args.domain_sweep:
@@ -167,8 +191,13 @@ def main(argv=None) -> int:
             return None if cell_completed(cfg, args) else cfg.run_name
         return run_isolated("gnn_pretraining_tpu_torch.run_finetune", grid, args, flags,
                             incomplete)
+    rc = spawn_dp_ranks("gnn_pretraining_tpu_torch.run_finetune", args, argv)
+    if rc is not None:
+        return rc
     device = resolve_device(launcher_device(args))
-    return 2 if run_grid(grid, args, device) else 0
+    failed = run_grid(grid, args, device)
+    close_mesh()
+    return 2 if failed else 0
 
 
 if __name__ == "__main__":

@@ -37,7 +37,17 @@ Writes under ``config.OUTPUT_DIR`` (``outputs/torch/``) unless
 ``--out_root``. A production cell on the card (``--epochs`` at
 ``config.PRETRAIN_EPOCHS``, no ``--out_root``) adds its wall time and the
 card's name and power limit to ``analysis/results/pretrain_timings_torch.json``.
-Not ported: ``--dp`` (the multi-device slice).
+
+``--dp auto`` runs every cell data-parallel (``pretrain(data_parallel=True)``,
+``parallel/data_parallel.py``). Under a launcher the ``LOCAL_WORLD_SIZE``
+ranks of a node form one data axis and step through the grid together, and
+the grid is sharded over the nodes (``WORLD_SIZE // LOCAL_WORLD_SIZE``,
+``GROUP_RANK``), as the JAX package shards it over processes and
+data-parallelises over each one's devices; rank 0 of the axis alone writes.
+Without a launcher, on a host with k > 1 cards, it starts k local ranks of
+itself (``parallel.mesh.spawn_local_ranks``); with one card, or
+``--device cpu``, it runs the single-device path. A cell that fails under
+``--dp`` ends the run: the other ranks would wait for it in a collective.
 """
 
 from __future__ import annotations
@@ -51,10 +61,17 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from gnn_pretraining_tpu_torch import config
+from gnn_pretraining_tpu_torch.parallel.mesh import (
+    close_mesh,
+    launcher_env,
+    make_mesh,
+    spawn_local_ranks,
+)
 from gnn_pretraining_tpu_torch.pretrain.pretrain import pretrain
 from gnn_pretraining_tpu_torch.utils.device import resolve_device
 from gnn_pretraining_tpu_torch.utils.fidelity import cell_completed as summary_completed
@@ -90,23 +107,36 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--isolate", type=int, default=0, metavar="N",
                         help="with a sweep: run the grid as child processes of "
                              "N cells each (host memory goes back with each)")
+    parser.add_argument("--dp", type=str, default="off", choices=["off", "auto"],
+                        help="data parallelism: 'auto' shards each step's graphs over "
+                             "the ranks of a node (a launcher's, else one per card of "
+                             "this host); one rank runs the single-device path")
     parser.add_argument("--grid_start", type=int, default=0,
                         help=argparse.SUPPRESS)      # an --isolate child's slice
     parser.add_argument("--grid_count", type=int, default=0,
                         help=argparse.SUPPRESS)
 
 
-def launcher_shard():
+def dp_auto(args) -> bool:
+    """``--dp auto`` was given (a namespace without the flag: off)."""
+    return getattr(args, "dp", "off") == "auto"
+
+
+def launcher_shard(dp: bool = False):
     """(shards, index) that a multi-process launcher gives this process
-    (``WORLD_SIZE``, ``RANK``, as ``torchrun`` sets them), else (1, 0)."""
-    return int(os.environ.get("WORLD_SIZE", "1")), int(os.environ.get("RANK", "0"))
+    (``WORLD_SIZE``, ``RANK``, as ``torchrun`` sets them), else (1, 0). Under
+    ``dp`` the ranks of a node share a shard: (nodes, ``GROUP_RANK``)."""
+    env = launcher_env()
+    if env is None:
+        return 1, 0
+    return (env["nodes"], env["node"]) if dp else (env["world"], env["rank"])
 
 
 def shard_label(args) -> str:
     """The shard a sweep runs, for its log: the flags', or the launcher's."""
     if args.num_shards or args.isolate or args.grid_count or "WORLD_SIZE" not in os.environ:
         return f"{args.shard_index}/{args.num_shards}"
-    n, i = launcher_shard()
+    n, i = launcher_shard(dp_auto(args))
     return f"{i}/{n} of the launcher"
 
 
@@ -124,7 +154,7 @@ def shard_grid(grid, args):
     elif args.isolate or args.grid_count:
         return grid
     else:
-        n, i = launcher_shard()
+        n, i = launcher_shard(dp_auto(args))
     if not 0 <= i < max(n, 1):
         raise SystemExit(f"--shard_index {i} out of range for {n} shards")
     return grid[i::n] if n > 1 else grid
@@ -150,6 +180,8 @@ def launcher_device(args):
 def child_flags(args) -> list:
     """The flags an ``--isolate`` child gets: the parent's, verbatim."""
     flags = ["--sweep", "--aggregation", args.aggregation]
+    if dp_auto(args):
+        flags += ["--dp", "auto"]
     if args.resume:
         flags.append("--resume")
     if args.epochs is not None:
@@ -232,6 +264,24 @@ def record_pretrain_timing(run_name: str, seconds: float, card: str) -> None:
     os.replace(tmp, TIMINGS_FILE)
 
 
+def data_axis(args, device: torch.device):
+    """The data axis of a ``--dp auto`` sweep (``make_mesh``: the process
+    group is made at the first call, the first cell that runs), or None."""
+    return make_mesh(device) if dp_auto(args) else None
+
+
+def spawn_dp_ranks(module: str, args, argv) -> Optional[int]:
+    """Under ``--dp auto`` with no launcher and more than one card: run this
+    command as one rank per card (``spawn_local_ranks``) and return its exit
+    code; else None, and this process runs the grid itself."""
+    if not dp_auto(args) or launcher_env() is not None or args.device not in (None, "cuda"):
+        return None
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        return None
+    return spawn_local_ranks(module, sys.argv[1:] if argv is None else list(argv), cards)
+
+
 def run_sweep(grid, args, device: torch.device) -> list:
     """Pretrain the cells of ``grid`` in order; returns the ones that failed."""
     # Only production cells feed the timing record: a reduced-epoch trial or
@@ -249,16 +299,20 @@ def run_sweep(grid, args, device: torch.device) -> list:
             print(f"{tag}: already complete, skipping", flush=True)
             continue
         t0 = time.time()
+        axis = data_axis(args, device)
         try:
             res = pretrain(cfg, aggregation=args.aggregation, epochs=args.epochs,
                            processed_dir=args.processed_dir, use_wandb=args.wandb,
-                           resume=args.resume, out_root=args.out_root, device=device)
+                           resume=args.resume, out_root=args.out_root, device=device,
+                           data_parallel=axis is not None, axis=axis)
             print(f"{tag}: best_val={res['best_val_total']:.4f} ({time.time() - t0:.0f}s)",
                   flush=True)
-            if card:
+            if card and (axis is None or axis.rank == 0):
                 record_pretrain_timing(cfg.run_name, time.time() - t0, card)
         except Exception:
             traceback.print_exc()
+            if axis is not None and axis.size > 1:
+                raise
             failed.append(cfg.run_name)
             print(f"{tag}: FAILED", flush=True)
         # A finished cell's model, optimizer and batches sit in reference
@@ -295,8 +349,13 @@ def main(argv=None) -> int:
             return None if cell_completed(cfg, args) else cfg.run_name
         return run_isolated("gnn_pretraining_tpu_torch.run_pretrain", grid, args,
                             child_flags(args), incomplete)
+    rc = spawn_dp_ranks("gnn_pretraining_tpu_torch.run_pretrain", args, argv)
+    if rc is not None:
+        return rc
     device = resolve_device(launcher_device(args))
-    return 2 if run_sweep(grid, args, device) else 0
+    failed = run_sweep(grid, args, device)
+    close_mesh()
+    return 2 if failed else 0
 
 
 if __name__ == "__main__":

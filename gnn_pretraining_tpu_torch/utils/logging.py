@@ -63,3 +63,14 @@ class MetricLogger:
         self._fh.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class SilentLogger:
+    """A ``MetricLogger`` that writes nothing: the logger of every rank of a
+    data-parallel run but rank 0."""
+
+    def log(self, metrics: Dict[str, float], step: int) -> None:
+        pass
+
+    def finish(self, extra: Optional[Dict] = None) -> None:
+        pass

@@ -8,7 +8,9 @@ on the CPU, held against ``gnn_pretraining_tpu/utils/runtime.py``.
   * the pause handshake: a requester process takes the card from a sweep
     that parks at its chunk boundary and resumes on ``release_chip``; a
     request whose owner is gone is discarded (both packages);
-  * the port's files are its own, never the JAX package's;
+  * the port's files are its own, never the JAX package's; under a
+    launcher each local rank writes its own pidfile, and ``reclaim_chip``
+    ends every rank;
   * ``maybe_clear_caches`` acts only from its RSS bound up.
 """
 
@@ -191,3 +193,38 @@ def test_maybe_clear_caches_acts_from_its_bound_up(monkeypatch, rss, fires):
     monkeypatch.setattr(runtime.gc, "collect", lambda: collected.append(1))
     assert runtime.maybe_clear_caches() is fires
     assert bool(collected) is fires
+
+
+RANK_SWEEPER = ("import sys, time\n"
+                "from gnn_pretraining_tpu_torch.utils import runtime\n"
+                "runtime.write_pidfile(); time.sleep(60)")
+
+
+def test_each_local_rank_has_its_pidfile_and_reclaim_ends_them_all(tmp_path):
+    """Two processes under a launcher's environment (``LOCAL_RANK`` 0 and 1,
+    the temporary directory ``tmp_path``) each record themselves in their
+    own file beside ``SWEEP_PIDFILE``; ``reclaim_chip`` on the sweep's
+    pidfile finds and terminates both."""
+    env = dict(os.environ, TMPDIR=str(tmp_path), WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+               PYTHONPATH=str(REPO))
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_SWEEPER],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(2)]
+    base = tmp_path / runtime.SWEEP_PIDFILE.name
+    try:
+        files = [tmp_path / f"gnn_torch_sweep.{r}.pid" for r in range(2)]
+        deadline = time.monotonic() + 60
+        while not all(f.exists() and f.read_text() for f in files):
+            assert time.monotonic() < deadline and all(p.poll() is None for p in procs)
+            time.sleep(0.05)
+        assert not base.exists()
+        assert runtime.pidfiles(base) == files
+        assert [int(f.read_text().split()[0]) for f in files] == [p.pid for p in procs]
+        assert runtime.reclaim_chip(base, wait_s=10.0)
+        assert all(p.wait(timeout=15) != 0 for p in procs)
+        assert not any(f.exists() for f in files)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
