@@ -149,6 +149,32 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 card). Then run_pretrain --dp auto, s2 for 1 epoch on the
                 resume phase's stores: one card, so the single-device path,
                 and its summary's fidelity block is the one without --dp;
+ 12d. partition -- edge- and node-partitioned full-graph fine-tuning
+                (parallel/edge_partition.py, parallel/node_partition.py,
+                finetune/edge_parallel.py, finetune/node_parallel.py) on
+                PART_RANKS gloo ranks on cuda:0, at full width and depth, b1:
+                (a) Cora_NC and (b) Cora_LP full_finetune on phase 5's
+                stores: one process's coo eval step and train step (its
+                keep-masks, ReLU branches and, for LP, the pairs its miner
+                drew recorded: equal similarities tie in the hard top-k,
+                and rounding breaks the tie), then each rank's eval step and
+                train step,
+                edge and node, from the same weights with those records
+                (a node rank takes its rows): loss, probabilities,
+                predictions, gradients, BatchNorm statistics and the
+                parameters after AdamW against the single process's at the
+                JAX package's tolerances (PART_*_TOL), the ranks bitwise
+                equal after a second step on their own draws; (c) Cora_NC on
+                the 6x store (16248 nodes): each mode's train-step
+                CUDA-event median per rank beside one process's coo step
+                and K1 step, the eval loss against the coo one, the plan's
+                halo and psum bytes per layer at F = 256 (also at (a) and
+                (b)), the all-to-all's route (host-staged: gloo refuses CUDA
+                tensors) and K1 / K3 launches (none: the paths run coo);
+                (d) run_finetune --partition edge and node against --partition
+                none, Cora_NC b1 coo, 2 epochs, no launcher, dropout off: on
+                one card the single-device path, the test loss within 5e-4
+                and the accuracy equal;
  13. data    -- the port's offline preprocessing (data/setup.py, host code)
                 on this machine, then the kernels driven from the stores it
                 made: (1) setup.main at scale 1 without raw files, one
@@ -442,6 +468,24 @@ DP_GC_CELL = ("ENZYMES", "full_finetune")
 DP_TIMING_REPS = 5
 DP_EVAL_TOL = 1e-2              # the eval loss after one AdamW step on each side
 DP_RANK_TIMEOUT_S = 600
+# Phase 12d, partition: edge- and node-partitioned fine-tuning on the one
+# card, as 12c's gloo ranks. Tolerances: the JAX package's own for these paths
+# (tests/test_node_parallel.py:95-96, 121-126: loss rtol 1e-5, probabilities
+# 1e-4, BN statistics rtol 1e-4 / atol 1e-6, gradients 1e-5 of their norm
+# and 1e-4 per leaf; the driver's test loss rtol 5e-4 / atol 5e-5 and
+# accuracy exactly, :281-285).
+PART_RANKS = 2
+PART_CELLS = ("Cora_NC", "Cora_LP")
+PART_MODES = ("edge", "node")
+PART_SCALE_DOMAIN = "Cora_NC"           # on CSR_STORES, the tracked 6x stores
+PART_TIMING_REPS = 5
+PART_LOSS_TOL = 1e-5
+PART_PROBS_TOL = 1e-4
+PART_STATS_TOL = 1e-4
+PART_GRAD_TOL = 1e-5
+PART_LEAF_TOL = 1e-4
+PART_DRIVER_EPOCHS = 2
+PART_DRIVER_LOSS_TOL = (5e-4, 5e-5)
 # K2 on inputs that hold NaN (k2_nan_phase): besides the poisoned step's own
 # NT-Xent inputs, Ẑ of NTXENT_NAN_ROWS rows (ntxent_inputs) with one row made
 # NaN on the card (0/0, the card's NaN): a valid row, whose columns poison
@@ -3082,6 +3126,401 @@ def dp_phase(device, processed_dir: Path, resume_dir: Path, tmp: Path, card,
     return launches
 
 
+def keep_mask_recording(source):
+    """Within the block, every keep-mask ``source`` hands out, on the host,
+    in call order."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def block():
+        real, masks = source.keep_mask, []
+
+        def keep_mask(x, rate):
+            keep = real(x, rate)
+            masks.append(keep.detach().cpu())
+            return keep
+
+        source.keep_mask = keep_mask
+        try:
+            yield masks
+        finally:
+            source.keep_mask = real
+
+    return block()
+
+
+def partition_cell(cfg, processed_dir: Path, device, axis=None, mode=None):
+    """``cfg``'s full-graph cell built as ``finetune()`` builds it: the
+    single-device ``coo`` steps, or with ``mode`` the edge- or
+    node-partitioned ones on ``axis``. A namespace of the model, the head's
+    own dropout source (node) or None, the steps, their first train and val
+    arguments, the optimizer's labels and learning rates and the train
+    graph (on the host)."""
+    import types
+
+    from gnn_pretraining_tpu_torch.data.loaders import create_finetune_arrays
+    from gnn_pretraining_tpu_torch.finetune import finetune as ft
+    from gnn_pretraining_tpu_torch.finetune.node_parallel import (
+        HaloAggregate,
+        replicate_head_dropout,
+    )
+
+    data = {split: create_finetune_arrays(cfg.domain_name, split, cfg.batch_size,
+                                          processed_dir) for split in ("train", "val")}
+    head = None
+    if mode == "edge":
+        model = ft.build_finetune_model(cfg, "coo", device, edge_axis=axis)
+    elif mode == "node":
+        model = ft.build_finetune_model(cfg, "coo", device, axis=axis,
+                                        aggregate_fn=HaloAggregate(axis))
+        head = replicate_head_dropout(model, cfg.seed + 1)
+    else:
+        model = ft.build_finetune_model(cfg, "coo", device)
+    optimizer, labels, lrs = ft.create_finetune_optimizer(model, cfg)
+    train, evaluate, train_batches, eval_batches = ft.build_steps(
+        cfg, model, optimizer, labels, data, device, axis, partition=mode)
+    return types.SimpleNamespace(
+        model=model, head=head, train=train, evaluate=evaluate,
+        targs=next(iter(train_batches()))[1], eargs=next(iter(eval_batches("val")))[1],
+        labels=labels, lrs=lrs, graph=data["train"].graph)
+
+
+def to_rank_rows(records, n_loc: int, axis, fill):
+    """Each record (rows of the whole graph) cut to this rank's ``n_loc``
+    rows of the plan's layout, its padding rows ``fill``."""
+    out = []
+    for a in records:
+        pad = a.new_full((axis.size * n_loc - a.shape[0], *a.shape[1:]), fill)
+        out.append(torch.cat([a, pad])[axis.rank * n_loc:(axis.rank + 1) * n_loc])
+    return out
+
+
+def partition_rank_cells(axis, inputs) -> dict:
+    """(a) and (b) on this rank: for each cell and mode, the eval step on
+    the twin's starting weights, a train step with the twin's keep-masks,
+    ReLU branches and mined pairs (a node rank takes its rows), a second on
+    its own draws (its own mining), then the step's CUDA-event median; (c)
+    each mode's train step median and eval loss on the 6x store."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.utils import relu_branches
+
+    dev, out = axis.device, {"launches": {}, "cells": {}, "scale": {}}
+    kernels = counters()
+    for c in kernels.values():
+        c.launches = 0
+    for spec in inputs["cells"]:
+        cfg = config.FinetuneConfig(spec["domain"], "full_finetune", "b1", 42)
+        for mode in PART_MODES:
+            cell = partition_cell(cfg, Path(inputs["processed_dir"]), dev, axis, mode)
+            model, head, train = cell.model, cell.head, cell.train
+            model.load_state_dict(moved(spec["state"], dev))
+            ev = [x.cpu() for x in cell.evaluate(*cell.eargs)]
+            # The records of the encoder and the backbone have a row per
+            # node; the link predictor's (pairs) are replicated.
+            nodes = spec["nodes"]
+            trunk = [m for m in spec["masks"] if m.shape[0] == nodes]
+            head_masks = [m for m in spec["masks"] if m.shape[0] != nodes]
+            branches = spec["branches"]
+            if mode == "node":
+                n_loc = cell.targs[-1].x.shape[0]
+                trunk = to_rank_rows(trunk, n_loc, axis, 1.0)
+                branches = [to_rank_rows([b], n_loc, axis, False)[0] if b.shape[0] == nodes
+                            else b for b in branches]
+                model.dropout.inject(moved(trunk, dev))
+                head.inject(moved(head_masks, dev))
+            else:
+                model.dropout.inject(moved(spec["masks"], dev))
+            kw = ({} if spec["negatives"] is None
+                  else {"negatives": moved(spec["negatives"], dev)})
+            with relu_branches.replay(model, moved(branches, dev)) as flips:
+                step = [x.detach().cpu().clone() for x in train(*cell.targs, **kw)]
+            if model.dropout.injected or (head is not None and head.injected):
+                raise AssertionError("a keep-mask was left over")
+            grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+                     if p.grad is not None}
+            after_one = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+            train(*cell.targs)
+            after_two = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+            out["cells"][f"{spec['domain']}/{mode}"] = {
+                "eval": ev, "train": step, "grads": grads, "after_one": after_one,
+                "after_two": after_two, "flips": sum(flips),
+                "step_ms": event_median(lambda: train(*cell.targs), PART_TIMING_REPS)}
+    scale = inputs["scale"]
+    cfg = config.FinetuneConfig(scale["domain"], "full_finetune", "b1", 42)
+    for mode in PART_MODES:
+        cell = partition_cell(cfg, Path(scale["processed_dir"]), dev, axis, mode)
+        cell.model.load_state_dict(moved(scale["state"], dev))
+        out["scale"][mode] = {"eval_loss": float(cell.evaluate(*cell.eargs)[0]),
+                              "step_ms": event_median(lambda: cell.train(*cell.targs),
+                                                      PART_TIMING_REPS)}
+    torch.cuda.synchronize()
+    out["launches"] = {name: c.launches for name, c in kernels.items()}
+    out["all_to_all"] = {"route": axis.all_to_all_route(dev),
+                         "calls": dict(axis.all_to_all_calls)}
+    return out
+
+
+def partition_rank_main() -> None:
+    """One rank of the partition phase (``python -c "import chip_smoke;
+    chip_smoke.partition_rank_main()" RANK TMP``), as ``dp_rank_main``."""
+    import torch.distributed as dist
+
+    rank, tmp = int(sys.argv[1]), Path(sys.argv[2])
+    import_port()
+    from gnn_pretraining_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(tmp / "inputs.pt", weights_only=False)
+    n, device = inputs["ranks"], inputs["device"]
+    if inputs["backend"] == "nccl":
+        device = f"cuda:{rank}"
+        torch.cuda.set_device(device)
+    dist.init_process_group(inputs["backend"], store=dist.FileStore(str(tmp / "store"), n),
+                            rank=rank, world_size=n)
+    try:
+        out = partition_rank_cells(make_mesh(device, dist.group.WORLD), inputs)
+        torch.save(out, tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def adamw_agreement(got: dict, want: dict, grads: dict, labels: dict, lrs: dict) -> dict:
+    """Parameters after one AdamW step against the twin's: the largest
+    distance over lr (at most 2: the first step moves an element by about
+    lr whatever its gradient's size), and the share of elements with a clear
+    gradient (> 1e-4) that part by more than 0.05 lr."""
+    worst, off, clear_n = 0.0, 0, 0
+    for n, group in labels.items():
+        if group == "frozen":
+            continue
+        dist = (got[n].cpu() - want[n].cpu()).abs() / lrs[group]
+        worst = max(worst, float(dist.max()))
+        clear = grads[n].cpu().abs() > 1e-4
+        off += int((dist[clear] > 0.05).sum())
+        clear_n += int(clear.sum())
+    return {"max_over_lr": worst, "clear_share_off": off / max(clear_n, 1),
+            "clear_elements": clear_n}
+
+
+def partition_driver_checks(processed_dir: Path, root: Path, card) -> dict:
+    """(d): ``run_finetune --partition edge|node`` against ``--partition
+    none``, Cora_NC b1 coo, PART_DRIVER_EPOCHS epochs, with no launcher (one
+    card: the single-device path; k cards: k ranks spawned) and dropout off,
+    as the JAX package's driver test runs it; -> the path's launches."""
+    import os
+
+    from gnn_pretraining_tpu_torch import config, run_finetune
+
+    kernels = counters()
+    for c in kernels.values():
+        c.launches = 0
+    site = root / "site"
+    site.mkdir(parents=True)
+    # Spawned ranks (several cards) get dropout off from a sitecustomize.
+    (site / "sitecustomize.py").write_text(
+        "from gnn_pretraining_tpu_torch import config\nconfig.DROPOUT_RATE = 0.0\n")
+    env = {"PYTHONPATH": os.pathsep.join(p for p in (str(site), str(HERE),
+                                                     os.environ.get("PYTHONPATH")) if p)}
+    summaries, seconds = {}, {}
+    cfg = config.FinetuneConfig("Cora_NC", "full_finetune", "b1", 42)
+    with mock.patch.object(config, "DROPOUT_RATE", 0.0), mock.patch.dict(os.environ, env):
+        for partition in ("none", "edge", "node"):
+            t = time.perf_counter()
+            rc, _ = captured_main(run_finetune.main, [
+                "--domain_name", "Cora_NC", "--finetune_strategy", "full_finetune",
+                "--pretrained_scheme", "b1", "--seed", "42",
+                "--epochs", str(PART_DRIVER_EPOCHS), "--aggregation", "coo",
+                "--partition", partition, "--processed_dir", str(processed_dir),
+                "--out_root", str(root / partition)])
+            seconds[partition] = time.perf_counter() - t
+            if rc:
+                raise AssertionError(f"run_finetune --partition {partition} exited {rc}")
+            summaries[partition] = json.loads(
+                (root / partition / "metrics" / config.FINETUNE_PROJECT_NAME
+                 / f"{cfg.run_name}.summary.json").read_text())
+    launches = {name: c.launches for name, c in kernels.items()}
+    want = summaries["none"]
+    rtol, atol = PART_DRIVER_LOSS_TOL
+    rows = {p: {"test/loss": s["test/loss"], "test/accuracy": s["test/accuracy"],
+                "completed": s["fidelity/completed"]} for p, s in summaries.items()}
+    ok = bool(all(abs(s["test/loss"] - want["test/loss"]) <= atol + rtol * abs(want["test/loss"])
+                  and s["test/accuracy"] == want["test/accuracy"]
+                  and s["fidelity/completed"] == 1 for s in summaries.values())
+              and not any(launches.values()))
+    emit({"phase": "partition", "run_finetune": "Cora_NC b1 coo, --partition none / edge / "
+          "node, dropout off", "epochs": PART_DRIVER_EPOCHS,
+          "cards": torch.cuda.device_count(), "summaries": rows, "seconds": seconds,
+          "loss_tol": list(PART_DRIVER_LOSS_TOL), "launches": launches, "card": card,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("run_finetune --partition does not match --partition none")
+    return launches
+
+
+def partition_phase(device, processed_dir: Path, tmp: Path, card, n: int = PART_RANKS,
+                    backend: str = "gloo") -> dict:
+    """Phase 12d on ``n`` ranks (gloo on one card, or NCCL with a card per
+    rank: tools/dp_cards.py); returns the launches of its paths (every
+    rank's partitioned steps and the drivers of (d))."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.finetune import finetune as ft
+    from gnn_pretraining_tpu_torch.finetune.mining import sample_gumbel
+    from gnn_pretraining_tpu_torch.parallel.node_partition import build_node_partition_plan
+    from gnn_pretraining_tpu_torch.utils import relu_branches
+
+    t0 = time.perf_counter()
+    tmp.mkdir(parents=True)
+    twins, cells = {}, []
+    for domain in PART_CELLS:
+        cfg = config.FinetuneConfig(domain, "full_finetune", "b1", 42)
+        cell = partition_cell(cfg, processed_dir, device)
+        model, train, graph = cell.model, cell.train, cell.graph
+        state = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+        ev = [x.cpu() for x in cell.evaluate(*cell.eargs)]
+        kw = {}
+        if cfg.task_type == "link_prediction":
+            kw = {"gumbel": sample_gumbel(graph.num_nodes ** 2,
+                                          torch.Generator(device).manual_seed(SEED), device)}
+        with keep_mask_recording(model.dropout) as masks, \
+                relu_branches.record(model) as branches:
+            step = [x.detach().cpu().clone() for x in train(*cell.targs, **kw)]
+        # The ranks score the pairs mined here: equal similarities (nodes
+        # with equal embeddings) tie in the hard top-k, and a tie falls by
+        # the rounding of the sums, which the partitions add in another order.
+        negatives = getattr(train, "last_negatives", None)
+        grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        plan = build_node_partition_plan(graph.senders.numpy(), graph.receivers.numpy(),
+                                         graph.edge_mask.numpy(), graph.num_nodes, n)
+        twins[domain] = {
+            "eval": ev, "train": step, "grads": grads, "labels": cell.labels,
+            "lrs": cell.lrs, "after_one": {k: v.cpu().clone() for k, v in
+                                           model.state_dict().items()},
+            "step_ms": event_median(lambda: train(*cell.targs), PART_TIMING_REPS),
+            "bytes": (plan.halo_bytes_per_layer(config.GNN_HIDDEN_DIM),
+                      plan.psum_bytes_per_layer(config.GNN_HIDDEN_DIM))}
+        cells.append({"domain": domain, "state": state, "masks": masks,
+                      "branches": [b.cpu() for b in branches], "nodes": graph.num_nodes,
+                      "negatives": None if negatives is None else moved(negatives, "cpu")})
+        del cell, model, train
+
+    # (c) the 6x store: the single-process coo and K1 steps and eval loss.
+    scfg = config.FinetuneConfig(PART_SCALE_DOMAIN, "full_finetune", "b1", 42)
+    cell = partition_cell(scfg, CSR_STORES, device)
+    g6 = cell.graph
+    scale_state = {k: v.cpu().clone() for k, v in cell.model.state_dict().items()}
+    scale = {"coo_eval_loss": float(cell.evaluate(*cell.eargs)[0]),
+             "coo_step_ms": event_median(lambda: cell.train(*cell.targs), PART_TIMING_REPS)}
+    del cell
+    from gnn_pretraining_tpu_torch.data.loaders import create_finetune_arrays
+
+    kdata = {"train": create_finetune_arrays(PART_SCALE_DOMAIN, "train", scfg.batch_size,
+                                             CSR_STORES)}
+    k1 = ft.build_finetune_model(scfg, "pallas", device)
+    k1_opt, k1_labels, _ = ft.create_finetune_optimizer(k1, scfg)
+    k1_train, _, k1_batches, _ = ft.build_steps(scfg, k1, k1_opt, k1_labels, kdata, device)
+    k1_args = next(iter(k1_batches()))[1]
+    scale["k1_step_ms"] = event_median(lambda: k1_train(*k1_args), PART_TIMING_REPS)
+    del k1, k1_train, k1_opt, k1_args
+    plan6 = build_node_partition_plan(g6.senders.numpy(), g6.receivers.numpy(),
+                                      g6.edge_mask.numpy(), g6.num_nodes, n)
+    scale["bytes"] = (plan6.halo_bytes_per_layer(config.GNN_HIDDEN_DIM),
+                      plan6.psum_bytes_per_layer(config.GNN_HIDDEN_DIM))
+    torch.cuda.empty_cache()
+
+    torch.save({"ranks": n, "device": str(device), "backend": backend,
+                "processed_dir": str(processed_dir), "cells": cells,
+                "scale": {"domain": PART_SCALE_DOMAIN, "processed_dir": str(CSR_STORES),
+                          "state": scale_state}}, tmp / "inputs.pt")
+    t_ranks = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               "import chip_smoke; chip_smoke.partition_rank_main()", str(r),
+                               str(tmp)], cwd=HERE, env=child_env(OMP_NUM_THREADS="4"))
+             for r in range(n)]
+    try:
+        rcs = [p.wait(timeout=DP_RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise AssertionError(f"partition ranks exited {rcs}")
+    rank_seconds = time.perf_counter() - t_ranks
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(n)]
+
+    oks = []
+    for domain in PART_CELLS:
+        twin = twins[domain]
+        for mode in PART_MODES:
+            got = [out["cells"][f"{domain}/{mode}"] for out in ranks]
+            r0 = got[0]
+            loss, twin_loss = float(r0["train"][0]), float(twin["train"][0])
+            eval_loss, twin_eval = float(r0["eval"][0]), float(twin["eval"][0])
+            probs_err = float((r0["train"][3] - twin["train"][3]).abs().max())
+            eval_probs_err = float((r0["eval"][3] - twin["eval"][3]).abs().max())
+            grads = grad_errs(r0["grads"], twin["grads"])
+            stats = max(float(((r0["after_one"][k] - v).abs()
+                               / (PART_STATS_TOL * v.abs() + 1e-6)).max())
+                        for k, v in twin["after_one"].items() if k.endswith(("_mean", "_var")))
+            params = adamw_agreement(r0["after_one"], twin["after_one"], twin["grads"],
+                                     twin["labels"], twin["lrs"])
+            bitwise = all(torch.equal(a["after_two"][k], v) for a in got[1:]
+                          for k, v in r0["after_two"].items())
+            equal_out = all(torch.equal(a["train"][0], r0["train"][0]) for a in got[1:])
+            ok = bool(abs(loss - twin_loss) <= PART_LOSS_TOL * abs(twin_loss)
+                      and abs(eval_loss - twin_eval) <= PART_LOSS_TOL * abs(twin_eval)
+                      and probs_err <= PART_PROBS_TOL and eval_probs_err <= PART_PROBS_TOL
+                      and torch.equal(r0["eval"][2], twin["eval"][2])
+                      and grads["l2"] <= PART_GRAD_TOL and grads["max"] <= PART_LEAF_TOL
+                      and stats <= 1.0 and params["max_over_lr"] <= 2.02
+                      and params["clear_share_off"] <= 0.005 and bitwise and equal_out)
+            oks.append(ok)
+            emit({"phase": "partition", "cell": f"{domain}/full_finetune b1", "mode": mode,
+                  "ranks": n, "backend": backend, "loss": loss, "loss_single": twin_loss,
+                  "loss_rel_err": abs(loss - twin_loss) / abs(twin_loss),
+                  "eval_loss_rel_err": abs(eval_loss - twin_eval) / abs(twin_eval),
+                  "probs_max_abs_err": probs_err, "eval_probs_max_abs_err": eval_probs_err,
+                  "grad_err": grads, "bn_stats_err_over_tol": stats, "adamw": params,
+                  "relu_flips_replayed": [a["flips"] for a in got],
+                  "ranks_bitwise_equal_after_two_steps": bitwise,
+                  "tol": {"loss": PART_LOSS_TOL, "probs": PART_PROBS_TOL,
+                          "grad_l2": PART_GRAD_TOL, "grad_max": PART_LEAF_TOL,
+                          "bn_stats": [PART_STATS_TOL, 1e-6]},
+                  "step_ms_per_rank": [a["step_ms"] for a in got],
+                  "single_coo_step_ms": twin["step_ms"],
+                  "halo_bytes_per_layer": twin["bytes"][0],
+                  "psum_bytes_per_layer": twin["bytes"][1], "card": card, "ok": ok})
+    scale_ok = all(abs(out["scale"][m]["eval_loss"] - scale["coo_eval_loss"])
+                   <= PART_LOSS_TOL * abs(scale["coo_eval_loss"])
+                   for out in ranks for m in PART_MODES)
+    launches = {name: sum(out["launches"][name] for out in ranks) for name in ranks[0]["launches"]}
+    routes = [out["all_to_all"] for out in ranks]
+    none_launched = not any(launches[k] for k in ("gin_spmm_fwd", "gin_spmm_bwd",
+                                                  "csr_spmm_fwd", "csr_spmm_bwd"))
+    emit({"phase": "partition", "cell": f"{PART_SCALE_DOMAIN} x6 full_finetune b1",
+          "nodes": g6.num_nodes, "nnz": int(g6.edge_mask.sum()), "ranks": n, "backend": backend,
+          "step_ms_per_rank": {m: [out["scale"][m]["step_ms"] for out in ranks]
+                               for m in PART_MODES},
+          "single_coo_step_ms": scale["coo_step_ms"], "single_k1_step_ms": scale["k1_step_ms"],
+          "eval_loss_rel_err": {m: [abs(out["scale"][m]["eval_loss"] - scale["coo_eval_loss"])
+                                    / abs(scale["coo_eval_loss"]) for out in ranks]
+                                for m in PART_MODES},
+          "halo_bytes_per_layer": scale["bytes"][0], "psum_bytes_per_layer": scale["bytes"][1],
+          "feature_dim": config.GNN_HIDDEN_DIM, "all_to_all": routes,
+          "launches_on_partitioned_steps": launches, "card": card,
+          "ok": scale_ok and none_launched})
+    driver_launches = partition_driver_checks(processed_dir, tmp / "drivers", card)
+    ok = all(oks) and scale_ok and none_launched
+    emit({"phase": "partition", "seconds": time.perf_counter() - t0,
+          "ranks_seconds": rank_seconds, "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the partition phase failed its checks: cells {oks}, "
+                             f"scale {scale_ok}, no K1/K3 launch {none_launched}")
+    return {name: launches[name] + driver_launches[name] for name in launches}
+
+
 def store_digest(path: Path) -> dict:
     """Key -> digest of one store's arrays: integer and bool arrays by dtype,
     shape and the SHA-256 of their bytes; float arrays by dtype, shape and
@@ -3799,10 +4238,15 @@ def main() -> int:
         # and its own launches stay out of the path's.
         dp = clocked("dp", lambda: dp_phase(device, processed_dir, resume_dir,
                                             Path(tmp) / "dp", card))
+        # Its ranks and drivers count their own launches (none: coo paths);
+        # the parent's single-process and K1 comparison steps stay out.
+        partition = clocked("partition", lambda: partition_phase(
+            device, processed_dir, Path(tmp) / "partition", card))
         _, data = run_path(lambda: clocked("data", lambda: data_phase(Path(tmp), out_root)))
         paths = {"serving": serving, "train": train, "pretrain": pretrain,
                  "pretrain_tasks": pretrain_tasks, "csr": csr, "resume": resume,
-                 "drivers": drivers, "sweep": sweep, "dp": dp, "data": data}
+                 "drivers": drivers, "sweep": sweep, "dp": dp, "partition": partition,
+                 "data": data}
         # The kernel rows read these dicts; the artifacts path joins them below.
         launches = {name: {path: counts[name] for path, counts in paths.items()}
                     for name in kernels}

@@ -40,11 +40,18 @@ graph-classification domain runs the steps of
 launcher's node) when it has more than one rank: each rank holds its share
 of every batch, on a ``coo`` model with SyncBN, as in the JAX package. Rank
 0 alone writes the log, the checkpoints and the summary, and hands the best
-checkpoint to every rank for the test pass. Node and link domains, or one rank,
-take the single-device path. Not ported: the JAX package's scan-fused
-runner (its chunked epochs and best-epoch replay cut TPU dispatches; this
-loop saves the best state at each improvement instead) and the edge- and
-node-partitioned modes.
+checkpoint to every rank for the test pass.
+
+``edge_parallel=True`` / ``node_parallel=True`` (``--edge_parallel`` /
+``--node_parallel``, the drivers' ``--partition edge|node``) on a node or
+link domain run the edge-partitioned steps of ``finetune/edge_parallel.py``
+or the node-partitioned (halo-exchange) steps of
+``finetune/node_parallel.py`` over the ranks of the axis, on a ``coo``
+model, with the same writes and hand-over as above. A task family without
+the asked path, or one rank, takes the single-device path. Not ported: the
+JAX package's scan-fused runner (its chunked epochs and best-epoch replay
+cut TPU dispatches; this loop saves the best state at each improvement
+instead).
 """
 
 from __future__ import annotations
@@ -62,12 +69,17 @@ import torch.nn.functional as F
 from gnn_pretraining_tpu_torch import config
 from gnn_pretraining_tpu_torch.data.batch import GraphStore
 from gnn_pretraining_tpu_torch.data.loaders import create_finetune_arrays
+from gnn_pretraining_tpu_torch.finetune import edge_parallel, node_parallel
 from gnn_pretraining_tpu_torch.finetune import metrics as M
 from gnn_pretraining_tpu_torch.finetune.mining import (
     build_forbidden_mask,
     candidate_count,
     hard_count,
     mine_hard_negatives,
+)
+from gnn_pretraining_tpu_torch.finetune.node_parallel import (
+    HaloAggregate,
+    replicate_head_dropout,
 )
 from gnn_pretraining_tpu_torch.finetune.runners import csr_graph_aux
 from gnn_pretraining_tpu_torch.models.finetune_model import FinetuneGNN
@@ -150,10 +162,18 @@ def masked_grad_norm(model: torch.nn.Module, labels: Dict[str, str]) -> torch.Te
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def _update(model, optimizer, labels, loss) -> torch.Tensor:
-    """Backward + one AdamW step; returns the masked grad norm."""
+def _update(model, optimizer, labels, loss, axis=None) -> torch.Tensor:
+    """Backward + one AdamW step; returns the masked grad norm. With ``axis``
+    (a loss that every rank of it computes) the gradients are averaged over
+    the ranks first, each rank's being n times its share (JAX
+    ``finetune/edge_parallel.py`` ``_replicated_update``), so that the update
+    is the same on every rank."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if axis is not None:
+        with_grad = [p for p in model.parameters() if p.grad is not None]
+        for p, g in zip(with_grad, axis.pmean([p.grad for p in with_grad])):
+            p.grad = g
     gnorm = masked_grad_norm(model, labels)
     optimizer.step()
     return gnorm
@@ -172,6 +192,13 @@ def _class_loss(logits: torch.Tensor, y: torch.Tensor, binary: bool) -> torch.Te
 
 def _classification_outputs(logits: torch.Tensor):
     return torch.softmax(logits, dim=-1), torch.argmax(logits, dim=-1)
+
+
+def _lp_outputs(z: torch.Tensor, y: torch.Tensor):
+    """(y, predictions, [1 - p, p]) of link logits ``z``."""
+    probs = torch.sigmoid(z)
+    preds = (probs > 0.5).to(torch.int32)
+    return y.to(torch.int32), preds, torch.stack([1.0 - probs, probs], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -218,9 +245,10 @@ def make_gc_steps(model: FinetuneGNN, cfg, optimizer, labels):
 
 
 def make_nc_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj,
-                  bsr=None):
+                  bsr=None, axis=None):
     """``train_step(node_idx, y)`` / ``eval_step(node_idx, y)`` over one full
-    graph (``graph`` and ``adj`` or ``bsr`` already on the model's device)."""
+    graph (``graph`` and ``adj`` or ``bsr`` already on the model's device).
+    ``axis``: the update averages the gradients over its ranks (``_update``)."""
     binary = config.NUM_CLASSES[cfg.domain_name] == 2
 
     def forward():
@@ -235,7 +263,7 @@ def make_nc_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj,
     def train_step(node_idx, y):
         model.train()
         loss, sel = loss_from_logits(forward(), node_idx, y)
-        gnorm = _update(model, optimizer, labels, loss)
+        gnorm = _update(model, optimizer, labels, loss, axis)
         probs, preds = _classification_outputs(sel.detach())
         return loss.detach(), y, preds, probs, gnorm
 
@@ -251,7 +279,7 @@ def make_nc_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj,
 
 def make_lp_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj_train,
                   forbidden, num_hard: int,
-                  generator: Optional[torch.Generator] = None, bsr=None):
+                  generator: Optional[torch.Generator] = None, bsr=None, axis=None):
     """``train_step(pos_edges, edge_mask) -> (loss, y, preds, probs2, mask,
     gnorm)`` and ``eval_step(edges, y, edge_mask)``.
 
@@ -259,14 +287,10 @@ def make_lp_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj_train,
     miner's uniform remainder; ``train_step(..., gumbel=)`` or
     ``negatives=(senders, receivers)`` replace the draw or the whole mining.
     ``train_step.last_negatives`` holds the pairs the last call scored, so a
-    second model can be stepped on exactly the same pairs."""
+    second model can be stepped on exactly the same pairs. ``axis``: as in
+    ``make_nc_steps``."""
     kwargs = dict(adj=adj_train, senders=graph.senders,
                   receivers=graph.receivers, edge_mask=graph.edge_mask, bsr=bsr)
-
-    def lp_outputs(z, y):
-        probs = torch.sigmoid(z)
-        preds = (probs > 0.5).to(torch.int32)
-        return y.to(torch.int32), preds, torch.stack([1.0 - probs, probs], dim=1)
 
     def train_step(pos_edges, edge_mask, *, gumbel=None, negatives=None):
         model.train()
@@ -290,8 +314,8 @@ def make_lp_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj_train,
         z = model(graph.x, graph.node_mask, score_senders=s, score_receivers=r,
                   return_logits=True, **kwargs)
         loss = masked_bce_with_logits_mean(z, y, mask)
-        gnorm = _update(model, optimizer, labels, loss)
-        return (loss.detach(), *lp_outputs(z.detach(), y), mask, gnorm)
+        gnorm = _update(model, optimizer, labels, loss, axis)
+        return (loss.detach(), *_lp_outputs(z.detach(), y), mask, gnorm)
 
     train_step.last_negatives = None
 
@@ -301,7 +325,7 @@ def make_lp_steps(model: FinetuneGNN, cfg, optimizer, labels, graph, adj_train,
         z = model(graph.x, graph.node_mask, score_senders=edges[0],
                   score_receivers=edges[1], return_logits=True, **kwargs)
         loss = masked_bce_with_logits_mean(z, y, edge_mask)
-        return (loss, *lp_outputs(z, y))
+        return (loss, *_lp_outputs(z, y))
 
     return train_step, eval_step
 
@@ -329,14 +353,16 @@ def _pretrained_variables(cfg, out_root: Path):
 
 
 def build_finetune_model(cfg, aggregation: str, device, out_root=None,
-                         axis=None) -> FinetuneGNN:
+                         axis=None, edge_axis=None, aggregate_fn=None) -> FinetuneGNN:
     """A ``FinetuneGNN`` initialised from ``cfg.seed`` (dropout seeded
     ``cfg.seed + 1``, on a rank of ``axis`` the rank's seed of it, and SyncBN
-    over the axis), with the pretrained backbone loaded unless the scheme is
-    ``b1`` (from scratch)."""
+    over the axis; ``edge_axis`` and ``aggregate_fn`` as the model takes
+    them), with the pretrained backbone loaded unless the scheme is ``b1``
+    (from scratch)."""
     model = FinetuneGNN(cfg.domain_name, aggregation,
                         generator=torch.Generator().manual_seed(cfg.seed),
-                        device=device, axis=axis)
+                        device=device, axis=axis, edge_axis=edge_axis,
+                        aggregate_fn=aggregate_fn)
     model.seed_dropout(cfg.seed + 1 if axis is None else rank_seed(cfg.seed + 1, axis.rank))
     if cfg.pretrained_scheme != "b1":
         pt_vars = _pretrained_variables(cfg, Path(out_root or config.OUTPUT_DIR))
@@ -353,7 +379,7 @@ def _save_model(path, model, epoch: int, val_metrics) -> None:
 
 
 def build_steps(cfg, model: FinetuneGNN, optimizer, labels, data, device,
-                axis=None, processed_dir=None):
+                axis=None, processed_dir=None, partition: Optional[str] = None):
     """The family's ``(train_step, eval_step, train_batches, eval_batches)``
     for ``data`` (split -> ``create_finetune_arrays`` output): the batch
     iterators yield the steps' positional arguments as device tensors, with
@@ -364,10 +390,14 @@ def build_steps(cfg, model: FinetuneGNN, optimizer, labels, data, device,
     in that labelling. With ``axis`` (graph classification, ``model`` built
     on it) the steps are the data-parallel ones over this rank's share of
     each batch of the store in ``processed_dir``, and the validity mask is
-    every rank's, rank-major, as the steps' outputs are."""
+    every rank's, rank-major, as the steps' outputs are. With ``partition``
+    (``"edge"`` or ``"node"``, node classification and link prediction,
+    ``model`` built for it on ``axis``) the steps are the edge- or
+    node-partitioned ones; the node ones take this rank's ``NodeShard`` as
+    their last argument."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
 
-    if axis is not None:
+    if axis is not None and partition is None:
         from gnn_pretraining_tpu_torch.finetune.gc_data_parallel import (
             build_sharded_gc_batches,
             make_gc_steps_data_parallel,
@@ -414,14 +444,24 @@ def build_steps(cfg, model: FinetuneGNN, optimizer, labels, data, device,
         """Node ids of the splits in the steps' labelling."""
         return inv[np.asarray(a)] if inv is not None else a
 
+    extra = ()                      # the node-partitioned steps' last argument
+    if partition == "node":
+        extra = (node_parallel.prepare(g, axis, device)[1],)
     if cfg.task_type == "node_classification":
-        train_step, eval_step = make_nc_steps(model, cfg, optimizer, labels,
-                                              graph, adj, bsr)
+        if partition == "edge":
+            train_step, eval_step = edge_parallel.make_nc_steps_edge_parallel(
+                model, cfg, optimizer, labels, graph, axis)
+        elif partition == "node":
+            train_step, eval_step = node_parallel.make_nc_steps_node_parallel(
+                model, cfg, optimizer, labels, axis)
+        else:
+            train_step, eval_step = make_nc_steps(model, cfg, optimizer, labels,
+                                                  graph, adj, bsr)
 
         def batches(split):
             d = data[split]
             for ix, y in zip(d.node_indices, d.labels):
-                yield np.ones(len(y), bool), (t(ids(ix)), t(y))
+                yield np.ones(len(y), bool), (t(ids(ix)), t(y), *extra)
 
         return train_step, eval_step, lambda: batches("train"), batches
 
@@ -432,20 +472,27 @@ def build_steps(cfg, model: FinetuneGNN, optimizer, labels, data, device,
     n_cand = candidate_count(g.num_nodes, train_edges, num_real_nodes=real_n)
     num_hard = hard_count(n_cand, cfg.batch_size)
     generator = torch.Generator(device=device)
-    generator.manual_seed(cfg.seed)
-    train_step, eval_step = make_lp_steps(model, cfg, optimizer, labels, graph,
-                                          adj, forbidden, num_hard, generator,
-                                          bsr)
+    generator.manual_seed(cfg.seed)     # on every rank alike: mining is replicated
+    if partition == "edge":
+        train_step, eval_step = edge_parallel.make_lp_steps_edge_parallel(
+            model, cfg, optimizer, labels, graph, axis, forbidden, num_hard, generator)
+    elif partition == "node":
+        train_step, eval_step = node_parallel.make_lp_steps_node_parallel(
+            model, cfg, optimizer, labels, axis, forbidden, num_hard, generator)
+    else:
+        train_step, eval_step = make_lp_steps(model, cfg, optimizer, labels, graph,
+                                              adj, forbidden, num_hard, generator,
+                                              bsr)
 
     def train_batches():
         d = data["train"]
         for e, m in zip(d.edges, d.edge_mask):
-            yield np.concatenate([m, m]) > 0, (t(ids(e)), t(m))
+            yield np.concatenate([m, m]) > 0, (t(ids(e)), t(m), *extra)
 
     def eval_batches(split):
         d = data[split]
         for e, y, m in zip(d.edges, d.labels, d.edge_mask):
-            yield m > 0, (t(ids(e)), t(y), t(m))
+            yield m > 0, (t(ids(e)), t(y), t(m), *extra)
 
     return train_step, eval_step, train_batches, eval_batches
 
@@ -454,21 +501,35 @@ def _to_numpy(*tensors):
     return [x.detach().cpu().numpy() for x in tensors]
 
 
+def parallel_mode(cfg, data_parallel: bool = False, edge_parallel: bool = False,
+                  node_parallel: bool = False) -> Optional[str]:
+    """Which multi-rank path ``cfg`` takes under the flags: ``"data"``
+    (graph classification), ``"node"`` or ``"edge"`` (node classification
+    and link prediction; node first, as in the JAX package), else None."""
+    if cfg.task_type == "graph_classification":
+        return "data" if data_parallel else None
+    return "node" if node_parallel else "edge" if edge_parallel else None
+
+
 def finetune(cfg: config.FinetuneConfig, aggregation: str = "pallas",
              processed_dir=None, epochs: Optional[int] = None, out_root=None,
              device=None, use_wandb: bool = False, data_parallel: bool = False,
-             axis=None) -> Dict[str, float]:
+             axis=None, edge_parallel: bool = False,
+             node_parallel: bool = False) -> Dict[str, float]:
     """Fine-tune one cell and return its test metrics.
 
     Runs on the card unless ``device="cpu"``. Checkpoints go to
     ``out_root/finetune``, metrics to ``out_root/metrics``; pretrained
     checkpoints are looked up under ``out_root/pretrain`` before the tracked
-    transfer artifacts. ``data_parallel`` on ``axis`` (else
-    ``make_mesh(device)``): see the module docstring."""
+    transfer artifacts. ``data_parallel``, ``edge_parallel`` and
+    ``node_parallel`` on ``axis`` (else ``make_mesh(device)``): see the
+    module docstring."""
     device = resolve_device(device)
-    if data_parallel and cfg.task_type == "graph_classification":
+    mode = parallel_mode(cfg, data_parallel, edge_parallel, node_parallel)
+    if mode is not None:
         axis = axis or make_mesh(device)
-    axis = axis if data_parallel and axis is not None and axis.size > 1 else None
+    axis = axis if mode is not None and axis is not None and axis.size > 1 else None
+    mode = mode if axis is not None else None
     if axis is not None:
         device = axis.device
     lead = axis is None or axis.rank == 0
@@ -499,13 +560,24 @@ def finetune(cfg: config.FinetuneConfig, aggregation: str = "pallas",
                                           processed_dir=processed_dir)
             for split in ("val", "test", "train")}
 
-    # The data-parallel model aggregates with coo, as the JAX package's does.
-    model = build_finetune_model(cfg, aggregation if axis is None else "coo", device,
-                                 out_root, axis)
+    # The multi-rank models aggregate with coo, as the JAX package's do: the
+    # edge-partitioned one over this rank's edges (no SyncBN, the same
+    # dropout seed on every rank), the node-partitioned one by the halo
+    # exchange (SyncBN, the rank's dropout seed, the head's replicated).
+    if mode == "edge":
+        model = build_finetune_model(cfg, "coo", device, out_root, edge_axis=axis)
+    elif mode == "node":
+        model = build_finetune_model(cfg, "coo", device, out_root, axis,
+                                     aggregate_fn=HaloAggregate(axis))
+        replicate_head_dropout(model, cfg.seed + 1)
+    else:
+        model = build_finetune_model(cfg, aggregation if axis is None else "coo", device,
+                                     out_root, axis)
     optimizer, labels, lrs = create_finetune_optimizer(model, cfg)
     total_params, trainable_params = param_counts(model, labels)
     train_step, eval_step, train_batches, eval_batches = build_steps(
-        cfg, model, optimizer, labels, data, device, axis, processed_dir)
+        cfg, model, optimizer, labels, data, device, axis, processed_dir,
+        mode if mode in ("edge", "node") else None)
 
     ckpt_path = finetune_out_dir / f"model_{cfg.run_name}.msgpack"
     if lead:
@@ -621,6 +693,13 @@ def main() -> None:
     parser.add_argument("--data_parallel", action="store_true",
                         help="under a multi-process launcher: shard each batch's "
                              "graphs over the node's ranks (graph classification)")
+    parser.add_argument("--edge_parallel", action="store_true",
+                        help="under a multi-process launcher: split the graph's "
+                             "edges over the node's ranks (node / link tasks)")
+    parser.add_argument("--node_parallel", action="store_true",
+                        help="under a multi-process launcher: split the graph's "
+                             "nodes over the node's ranks, halo exchange (node / "
+                             "link tasks)")
     args = parser.parse_args()
     cfg = config.FinetuneConfig(domain_name=args.domain_name,
                                 finetune_strategy=args.finetune_strategy,
@@ -629,7 +708,8 @@ def main() -> None:
     result = finetune(cfg, aggregation=args.aggregation, epochs=args.epochs,
                       processed_dir=args.processed_dir, out_root=args.out_root,
                       device=args.device, use_wandb=args.wandb,
-                      data_parallel=args.data_parallel)
+                      data_parallel=args.data_parallel, edge_parallel=args.edge_parallel,
+                      node_parallel=args.node_parallel)
     print({k: round(v, 4) if isinstance(v, float) else v
            for k, v in result.items()})
 

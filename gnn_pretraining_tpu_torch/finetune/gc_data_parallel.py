@@ -56,11 +56,10 @@ def make_gc_steps_data_parallel(model, cfg, optimizer, labels, axis):
     from gnn_pretraining_tpu_torch.finetune.finetune import (
         _class_loss,
         _classification_outputs,
-        masked_grad_norm,
+        _update,
     )
 
     binary = config.NUM_CLASSES[cfg.domain_name] == 2
-    params = [p for p in model.parameters() if p.requires_grad]
 
     def forward(batch):
         return model(batch.x, batch.node_mask, senders=batch.senders,
@@ -80,13 +79,7 @@ def make_gc_steps_data_parallel(model, cfg, optimizer, labels, axis):
         model.train()
         logits = forward(batch)
         loss = loss_from_logits(logits, batch.y, batch.graph_mask)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        with_grad = [p for p in params if p.grad is not None]
-        for p, g in zip(with_grad, axis.pmean([p.grad for p in with_grad])):
-            p.grad = g
-        gnorm = masked_grad_norm(model, labels)
-        optimizer.step()
+        gnorm = _update(model, optimizer, labels, loss, axis)
         with torch.no_grad():
             return (loss.detach(), *gathered(logits.detach(), batch.y), gnorm)
 

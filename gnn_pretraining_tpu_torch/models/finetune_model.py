@@ -35,10 +35,13 @@ class FinetuneGNN(nn.Module):
 
     Train-mode dropout draws from ``self.dropout`` (a ``DropoutSource`` on
     the model's device, seeded 0 until ``seed_dropout``). ``axis`` (a
-    ``parallel.mesh.DataAxis``) makes every BatchNorm a SyncBN."""
+    ``parallel.mesh.DataAxis``) makes every BatchNorm a SyncBN;
+    ``edge_axis`` and ``aggregate_fn`` reach every ``GINLayer``
+    (``models/gnn.py``)."""
 
     def __init__(self, domain_name: str, aggregation: str = "pallas", *,
-                 generator: Optional[torch.Generator] = None, device=None, axis=None):
+                 generator: Optional[torch.Generator] = None, device=None, axis=None,
+                 edge_axis=None, aggregate_fn=None):
         super().__init__()
         device = resolve_device(device)
         gen = init_generator(generator)
@@ -48,7 +51,8 @@ class FinetuneGNN(nn.Module):
         self.input_encoder = InputEncoder(config.DOMAIN_DIMENSIONS[domain_name],
                                           generator=gen, device=device, axis=axis)
         self.gnn_backbone = GINBackbone(aggregation, generator=gen, device=device,
-                                        axis=axis)
+                                        axis=axis, edge_axis=edge_axis,
+                                        aggregate_fn=aggregate_fn)
         c = config.NUM_CLASSES[domain_name]
         if self.task_type == "graph_classification":
             self.classification_head = MLPHead((H, config.FINETUNE_HIDDEN_DIM, c),

@@ -13,9 +13,14 @@ Parameters are drawn from an explicit ``torch.Generator`` with
 torch.nn.Linear's U(±1/√fan_in) rule for weight and bias. Train/eval is the
 module's ``training`` flag. ``axis`` (a ``parallel.mesh.DataAxis``, the JAX
 modules' ``axis_name``) reaches every BatchNorm, which then runs as SyncBN;
-it adds no parameter or buffer. Every ReLU is an ``nn.ReLU`` module, so that
-``utils.relu_branches`` can record and replay the side of the kink each unit
-takes. Dropout never reads torch's global generator: every
+it adds no parameter or buffer. ``edge_axis`` (the JAX modules' field of
+that name) makes the ``coo`` aggregation edge-partitioned over the axis's
+ranks (``ops.spmm.gin_aggregate_coo``), and ``aggregate_fn(h, eps) -> z``
+replaces the aggregation outright (the node-partitioned halo exchange,
+``finetune/node_parallel.py``), leaving the MLP, BatchNorms and residual as
+they are; neither adds a parameter or buffer. Every ReLU is an ``nn.ReLU``
+module, so that ``utils.relu_branches`` can record and replay the side of
+the kink each unit takes. Dropout never reads torch's global generator: every
 ``Dropout`` draws from the explicit generator of its ``DropoutSource`` (one
 per model, on the model's device), or takes keep-masks injected there.
 """
@@ -23,7 +28,7 @@ per model, on the model's device), or takes keep-masks injected there.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -147,7 +152,7 @@ class InputEncoder(nn.Module):
 
 
 def _aggregate(h: torch.Tensor, eps: torch.Tensor, adj, senders, receivers,
-               edge_mask, impl: str, bsr=None) -> torch.Tensor:
+               edge_mask, impl: str, bsr=None, edge_axis=None) -> torch.Tensor:
     if impl == "csr" or bsr is not None:
         if bsr is None:
             raise ValueError(
@@ -158,7 +163,7 @@ def _aggregate(h: torch.Tensor, eps: torch.Tensor, adj, senders, receivers,
     # As in the JAX model, no adjacency means COO whatever ``impl`` says; the
     # serving functions always pass one.
     if impl == "coo" or adj is None:
-        return gin_aggregate_coo(h, senders, receivers, edge_mask, eps)
+        return gin_aggregate_coo(h, senders, receivers, edge_mask, eps, edge_axis)
     if impl == "pallas":
         return spmm(adj, h, eps)
     return gin_aggregate_dense(h, adj, eps)
@@ -181,9 +186,13 @@ class GINConv(nn.Module):
             TorchLinear(2 * H, H, generator=gen, device=device))
 
     def forward(self, h, node_mask, aggregation: str, *, adj=None, senders=None,
-                receivers=None, edge_mask=None, bsr=None) -> torch.Tensor:
-        z = _aggregate(h, self.eps, adj, senders, receivers, edge_mask,
-                       aggregation, bsr)
+                receivers=None, edge_mask=None, bsr=None, edge_axis=None,
+                aggregate_fn=None) -> torch.Tensor:
+        if aggregate_fn is not None:
+            z = aggregate_fn(h, self.eps)
+        else:
+            z = _aggregate(h, self.eps, adj, senders, receivers, edge_mask,
+                           aggregation, bsr, edge_axis)
         z = self.nn[1](self.nn[0](z), node_mask)
         return self.nn[3](self.nn[2](z))
 
@@ -192,10 +201,13 @@ class GINLayer(nn.Module):
     """GINConv + residual + BN + ReLU + Dropout (reference: gnn.py:26-43)."""
 
     def __init__(self, aggregation: str = "dense", *,
-                 generator: Optional[torch.Generator] = None, device=None, axis=None):
+                 generator: Optional[torch.Generator] = None, device=None, axis=None,
+                 edge_axis=None, aggregate_fn: Optional[Callable] = None):
         super().__init__()
         device = resolve_device(device)
         self.aggregation = aggregation   # "dense" | "pallas" | "coo" | "csr"
+        self.edge_axis = edge_axis       # edge-partitioned coo over its ranks
+        self.aggregate_fn = aggregate_fn  # (h, eps) -> z, replaces the aggregation
         self.gin_conv = GINConv(generator=generator, device=device, axis=axis)
         self.batch_norm = MaskedBatchNorm(H, device=device, axis=axis)
         self.relu = nn.ReLU()
@@ -205,7 +217,8 @@ class GINLayer(nn.Module):
                 edge_mask=None, bsr=None) -> torch.Tensor:
         z = self.gin_conv(h, node_mask, self.aggregation, adj=adj,
                           senders=senders, receivers=receivers,
-                          edge_mask=edge_mask, bsr=bsr)
+                          edge_mask=edge_mask, bsr=bsr, edge_axis=self.edge_axis,
+                          aggregate_fn=self.aggregate_fn)
         z = self.batch_norm(z + h, node_mask)   # residual before the BN
         return self.dropout(self.relu(z))
 
@@ -214,12 +227,15 @@ class GINBackbone(nn.Module):
     """5 stacked GINLayers (reference: gnn.py:46-54)."""
 
     def __init__(self, aggregation: str = "dense", *,
-                 generator: Optional[torch.Generator] = None, device=None, axis=None):
+                 generator: Optional[torch.Generator] = None, device=None, axis=None,
+                 edge_axis=None, aggregate_fn: Optional[Callable] = None):
         super().__init__()
         device = resolve_device(device)
         gen = init_generator(generator)
+        self.aggregate_fn = aggregate_fn
         self.layers = nn.ModuleList(
-            GINLayer(aggregation, generator=gen, device=device, axis=axis)
+            GINLayer(aggregation, generator=gen, device=device, axis=axis,
+                     edge_axis=edge_axis, aggregate_fn=aggregate_fn)
             for _ in range(config.GNN_NUM_LAYERS))
 
     def forward(self, h, node_mask, *, adj=None, senders=None, receivers=None,

@@ -45,10 +45,17 @@ def build_dense_adjacency(senders: torch.Tensor, receivers: torch.Tensor,
 
 def gin_aggregate_coo(h: torch.Tensor, senders: torch.Tensor,
                       receivers: torch.Tensor, edge_mask: torch.Tensor,
-                      eps) -> torch.Tensor:
-    """Reference-semantics aggregation via gather + masked ``index_add_``."""
+                      eps, edge_axis=None) -> torch.Tensor:
+    """Reference-semantics aggregation via gather + masked ``index_add_``.
+
+    With ``edge_axis`` (a ``parallel.mesh.DataAxis`` whose ranks each hold a
+    block of the edge list), the partial over this rank's edges is summed
+    over the ranks before ``(1+eps)·h`` is added: the edge-partitioned
+    aggregation of ``parallel/edge_partition.py``."""
     msgs = h[senders.long()] * edge_mask.to(h.dtype)[:, None]
     agg = torch.zeros_like(h).index_add_(0, receivers.long(), msgs)
+    if edge_axis is not None:
+        agg = edge_axis.psum(agg)
     return agg + (1.0 + eps) * h
 
 

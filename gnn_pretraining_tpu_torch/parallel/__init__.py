@@ -1,7 +1,7 @@
-"""Data parallelism over ``torch.distributed``: the data axis, the
-data-parallel pretrain step and its sharded sampler. Port of the
-data-parallel half of ``gnn_pretraining_tpu/parallel`` (the edge- and
-node-partitioned and tensor-parallel modes are not ported yet)."""
+"""Parallelism over ``torch.distributed``: the data axis, the data-parallel
+pretrain step and its sharded sampler, and the edge- and node-partitioned
+aggregations of one graph over the axis's ranks. Port of
+``gnn_pretraining_tpu/parallel`` but for its tensor-parallel mode."""
 
 from gnn_pretraining_tpu_torch.parallel.mesh import DataAxis, make_mesh
 

@@ -1,6 +1,8 @@
 """The data axis of the port: the ranks of a ``torch.distributed`` group.
 
-Port of ``gnn_pretraining_tpu/parallel/mesh.py`` for its ``data`` axis. One
+Port of ``gnn_pretraining_tpu/parallel/mesh.py`` for its ``data`` axis, which
+also serves as its ``edge`` axis (the JAX package's partitioned modes take a
+mesh of one data row and n edge columns). One
 JAX device on that axis is one process here, a rank of a process group;
 ``shard_map``'s per-device body is each rank's own code, and the JAX
 collectives become these (``DataAxis``):
@@ -17,7 +19,16 @@ collectives become these (``DataAxis``):
     CUDA tensors, and the autograd all-gather of ``torch.distributed.nn``
     takes all-to-all in its backward off NCCL;
   * ``pmean`` of the gradients → ``pmean``: one all-reduce of the leaves
-    laid end to end, then a division by n.
+    laid end to end, then a division by n;
+  * ``all_to_all(x, axis, 0, 0, tiled=True)`` → ``all_to_all``: dim 0 split
+    into n blocks, block q to rank q, the received blocks concatenated in
+    rank order; its backward is the same exchange of the gradient, as JAX
+    transposes it. It runs as ``all_to_all_single`` where the backend takes
+    it (NCCL; gloo on CPU tensors); gloo refuses it on CUDA tensors, so
+    there the send buffer is staged in host memory and the result copied
+    back to the rank's card (``all_to_all_route``, chosen from the
+    backend and the tensor's device). ``DataAxis.all_to_all_calls`` counts
+    the axis's exchanges by route.
 
 ``make_mesh`` builds the axis from a group the caller passes (the tests and
 ``chip_smoke.py`` do), else from a multi-process launcher's environment
@@ -34,6 +45,7 @@ environment, as a launcher would.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import os
@@ -74,6 +86,34 @@ class _AllReduce(torch.autograd.Function):
         return out, None
 
 
+def _exchange(x: torch.Tensor, axis: "DataAxis") -> torch.Tensor:
+    """Block q of ``x``'s dim 0 to rank q; the blocks received, rank-major."""
+    route = axis.all_to_all_route(x.device)
+    axis.all_to_all_calls[route] += 1
+    x = x.contiguous()
+    if route == "host":
+        send = x.cpu()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=axis.group)
+        return recv.to(x.device)
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=axis.group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all over dim 0; its backward is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _exchange(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.axis), None
+
+
 @dataclasses.dataclass(frozen=True)
 class DataAxis:
     """This process's place on the data axis: its ``rank`` among ``size``
@@ -82,6 +122,9 @@ class DataAxis:
     size: int = 1
     group: Optional[Any] = None
     device: Optional[torch.device] = None
+    # The exchanges ``all_to_all`` made, forward and backward, by route.
+    all_to_all_calls: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter, compare=False, repr=False)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return _AllReduce.apply(x, self.group) if self.size > 1 else x
@@ -94,6 +137,23 @@ class DataAxis:
         rows, rest = x.shape[0], tuple(x.shape[1:])
         return self.psum(torch.cat([x.new_zeros((self.rank * rows, *rest)), x,
                                     x.new_zeros(((self.size - 1 - self.rank) * rows, *rest))]))
+
+    def all_to_all_route(self, device) -> str:
+        """How ``all_to_all`` exchanges tensors on ``device``: ``native``
+        (``all_to_all_single`` on the tensors), or ``host`` (gloo with CUDA
+        tensors: through host memory)."""
+        gloo = dist.get_backend(self.group) == "gloo"
+        return "host" if gloo and torch.device(device).type == "cuda" else "native"
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Dim 0 of ``x`` split into ``size`` blocks, block q sent to rank q,
+        the blocks received concatenated in rank order; differentiable."""
+        if self.size == 1:
+            return x
+        if x.shape[0] % self.size:
+            raise ValueError(f"all_to_all splits dim 0 ({x.shape[0]}) into {self.size} "
+                             "equal blocks")
+        return _AllToAll.apply(x, self)
 
     def pmean(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Each tensor's mean over the ranks (no autograd)."""

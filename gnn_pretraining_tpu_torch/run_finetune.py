@@ -30,11 +30,17 @@ Runs on the card unless ``--device cpu`` (under a launcher,
 
 ``--dp auto`` forms the data axis as ``run_pretrain`` does and runs each
 graph-classification cell data-parallel
-(``finetune(data_parallel=True)``, ``finetune/gc_data_parallel.py``); a
-node or link cell has no data-parallel path and runs on rank 0 of the axis
-alone, while the other ranks go on to the next cell and wait for it there.
-Not ported: ``--partition`` (the edge- and node-partitioned full-graph
-modes); it is refused.
+(``finetune(data_parallel=True)``, ``finetune/gc_data_parallel.py``).
+``--partition edge|node`` forms the same axis and runs each node or link
+cell over it, edge-partitioned (``finetune(edge_parallel=True)``,
+``finetune/edge_parallel.py``) or node-partitioned with a halo exchange
+(``finetune(node_parallel=True)``, ``finetune/node_parallel.py``), as the
+JAX driver's ``_parallel_kwargs`` maps the flags; it leaves graph
+classification cells alone, and the two flags go together. A cell that
+the flags give no multi-rank path runs on rank 0 of the axis alone, while
+the other ranks go on to the next cell and wait for it there. With no
+launcher and more than one card either flag starts one rank per card; with
+one card the cells take the single-device path.
 """
 
 from __future__ import annotations
@@ -49,12 +55,13 @@ from typing import List, Tuple
 import torch
 
 from gnn_pretraining_tpu_torch import config
-from gnn_pretraining_tpu_torch.finetune.finetune import finetune
+from gnn_pretraining_tpu_torch.finetune.finetune import finetune, parallel_mode
 from gnn_pretraining_tpu_torch.parallel.mesh import close_mesh
 from gnn_pretraining_tpu_torch.run_pretrain import (
     add_common_args,
     child_flags,
     data_axis,
+    dp_auto,
     launcher_device,
     metrics_root,
     run_isolated,
@@ -118,22 +125,26 @@ def run_grid(grid, args, device: torch.device) -> list:
                   "marker", flush=True)
             continue
         axis = data_axis(args, device)
-        dp = axis is not None and axis.size > 1
-        sharded = dp and cfg.task_type == "graph_classification"
-        if dp and not sharded and axis.rank:
-            print(f"{tag}: no data-parallel path, runs on rank 0", flush=True)
+        multi = axis is not None and axis.size > 1
+        mode = parallel_mode(cfg, data_parallel=dp_auto(args),
+                             edge_parallel=args.partition == "edge",
+                             node_parallel=args.partition == "node") if multi else None
+        if multi and mode is None and axis.rank:
+            print(f"{tag}: no multi-rank path, runs on rank 0", flush=True)
             continue
         print(f"{tag}: starting", flush=True)
         t0 = time.time()
         try:
             res = finetune(cfg, aggregation=args.aggregation, processed_dir=args.processed_dir,
                            epochs=args.epochs, out_root=args.out_root, device=device,
-                           use_wandb=args.wandb, data_parallel=sharded, axis=axis)
+                           use_wandb=args.wandb, data_parallel=mode == "data",
+                           edge_parallel=mode == "edge", node_parallel=mode == "node",
+                           axis=axis)
             key = "test/auc" if cfg.task_type == "link_prediction" else "test/accuracy"
             print(f"{tag}: {key}={res[key]:.4f} ({time.time() - t0:.0f}s)", flush=True)
         except Exception:
             traceback.print_exc()
-            if sharded:
+            if mode is not None:        # the other ranks wait in a collective
                 raise
             failed.append(cfg.run_name)
             print(f"{tag}: FAILED", flush=True)
@@ -162,11 +173,12 @@ def main(argv=None) -> int:
                         choices=["dense", "pallas", "coo", "csr"])
     parser.add_argument("--partition", type=str, default="none",
                         choices=["none", "edge", "node"],
-                        help="not ported yet: only 'none' is accepted")
+                        help="split node / link cells over the ranks (as --dp auto "
+                             "forms them): 'edge' = edge-partitioned aggregation "
+                             "(summed [N,F] partials), 'node' = node partitioning "
+                             "with a halo exchange (bytes with the edge cut); "
+                             "graph-classification cells ignore it")
     args = parser.parse_args(argv)
-    if args.partition != "none":
-        parser.error(f"--partition {args.partition}: the edge- and node-partitioned "
-                     "full-graph modes are not ported yet (only --dp auto is)")
     if args.sweep:
         grid = full_grid()
     elif args.domain_sweep:

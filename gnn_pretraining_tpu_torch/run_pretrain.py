@@ -122,10 +122,17 @@ def dp_auto(args) -> bool:
     return getattr(args, "dp", "off") == "auto"
 
 
+def multi_rank(args) -> bool:
+    """The ranks of a node are wanted: ``--dp auto`` or run_finetune's
+    ``--partition edge|node``."""
+    return dp_auto(args) or getattr(args, "partition", "none") != "none"
+
+
 def launcher_shard(dp: bool = False):
     """(shards, index) that a multi-process launcher gives this process
     (``WORLD_SIZE``, ``RANK``, as ``torchrun`` sets them), else (1, 0). Under
-    ``dp`` the ranks of a node share a shard: (nodes, ``GROUP_RANK``)."""
+    ``dp`` (``--dp auto`` or ``--partition``) the ranks of a node share a
+    shard: (nodes, ``GROUP_RANK``)."""
     env = launcher_env()
     if env is None:
         return 1, 0
@@ -136,7 +143,7 @@ def shard_label(args) -> str:
     """The shard a sweep runs, for its log: the flags', or the launcher's."""
     if args.num_shards or args.isolate or args.grid_count or "WORLD_SIZE" not in os.environ:
         return f"{args.shard_index}/{args.num_shards}"
-    n, i = launcher_shard(dp_auto(args))
+    n, i = launcher_shard(multi_rank(args))
     return f"{i}/{n} of the launcher"
 
 
@@ -154,7 +161,7 @@ def shard_grid(grid, args):
     elif args.isolate or args.grid_count:
         return grid
     else:
-        n, i = launcher_shard(dp_auto(args))
+        n, i = launcher_shard(multi_rank(args))
     if not 0 <= i < max(n, 1):
         raise SystemExit(f"--shard_index {i} out of range for {n} shards")
     return grid[i::n] if n > 1 else grid
@@ -182,6 +189,8 @@ def child_flags(args) -> list:
     flags = ["--sweep", "--aggregation", args.aggregation]
     if dp_auto(args):
         flags += ["--dp", "auto"]
+    if getattr(args, "partition", "none") != "none":
+        flags += ["--partition", args.partition]
     if args.resume:
         flags.append("--resume")
     if args.epochs is not None:
@@ -265,16 +274,19 @@ def record_pretrain_timing(run_name: str, seconds: float, card: str) -> None:
 
 
 def data_axis(args, device: torch.device):
-    """The data axis of a ``--dp auto`` sweep (``make_mesh``: the process
-    group is made at the first call, the first cell that runs), or None."""
-    return make_mesh(device) if dp_auto(args) else None
+    """The data axis of a ``--dp auto`` (or ``--partition``) sweep
+    (``make_mesh``: the process group is made at the first call, the first
+    cell that runs), or None."""
+    return make_mesh(device) if multi_rank(args) else None
 
 
 def spawn_dp_ranks(module: str, args, argv) -> Optional[int]:
-    """Under ``--dp auto`` with no launcher and more than one card: run this
-    command as one rank per card (``spawn_local_ranks``) and return its exit
-    code; else None, and this process runs the grid itself."""
-    if not dp_auto(args) or launcher_env() is not None or args.device not in (None, "cuda"):
+    """Under ``--dp auto`` (or ``--partition``) with no launcher and more than
+    one card: run this command as one rank per card (``spawn_local_ranks``)
+    and return its exit code; else None, and this process runs the grid
+    itself."""
+    if (not multi_rank(args) or launcher_env() is not None
+            or args.device not in (None, "cuda")):
         return None
     cards = torch.cuda.device_count()
     if cards < 2:

@@ -15,7 +15,14 @@ seeded ENZYMES store and the real config (5 layers). Held:
     ``test_torch_dp_step.py``);
   * under ``--resume`` a finished cell is skipped on each rank without
     making a process group (``main`` in this process, as rank 1);
-  * ``--partition`` is refused.
+  * ``run_finetune --partition edge`` and ``--partition node`` on a tiny
+    seeded Cora_NC store (2 GIN layers, dropout off in the ranks and in the
+    reference, as the JAX package's driver test has it): the two ranks run
+    the cell partitioned, and its summary's test loss and accuracy equal
+    ``--partition none``'s at that test's tolerances (loss rtol 5e-4 / atol
+    5e-5, accuracy exactly, ``tests/test_node_parallel.py``);
+  * one rank with ``--partition`` (no launcher) takes the single-device
+    path: the same summary as ``--partition none``, bit for bit.
 """
 
 from __future__ import annotations
@@ -30,7 +37,10 @@ import pytest
 import torch
 
 from gnn_pretraining_tpu_torch import config, run_finetune, run_pretrain
-from gnn_pretraining_tpu_torch.data.synthetic import synthetic_pretrain_store
+from gnn_pretraining_tpu_torch.data.synthetic import (
+    synthetic_planetoid_stores,
+    synthetic_pretrain_store,
+)
 from gnn_pretraining_tpu_torch.parallel.mesh import free_port
 from gnn_pretraining_tpu_torch.utils import runtime
 from gnn_pretraining_tpu_torch.utils.checkpoint import load_train_state
@@ -44,12 +54,13 @@ FINETUNE = ["--domain_name", "ENZYMES", "--finetune_strategy", "full_finetune",
 LAUNCHER = {"WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "2", "GROUP_RANK": "0"}
 
 
-def launch(module, argvs, tmp):
-    """``python -m module`` as the two ranks of one node, rank r with
-    ``argvs[r]``; -> each rank's output."""
+def launch(module, argvs, tmp, code=None):
+    """``python -m module`` (or ``python -c code``) as the two ranks of one
+    node, rank r with ``argvs[r]``; -> each rank's output."""
     env = dict(os.environ, **LAUNCHER, MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
                OMP_NUM_THREADS="1", TMPDIR=str(tmp), PYTHONPATH=str(REPO))
-    procs = [subprocess.Popen([sys.executable, "-m", module, *argv],
+    head = ["-m", module] if code is None else ["-c", code]
+    procs = [subprocess.Popen([sys.executable, *head, *argv],
                               env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r, argv in enumerate(argvs)]
@@ -118,6 +129,65 @@ def test_a_finished_cell_is_skipped_without_a_process_group(runs, driver, argv, 
     assert not torch.distributed.is_initialized()
 
 
-def test_partition_is_refused():
-    with pytest.raises(SystemExit):
-        run_finetune.main(FINETUNE + ["--partition", "edge", "--device", "cpu"])
+PARTITION_LAYERS = 2
+PARTITION_CELL = ["--domain_name", "Cora_NC", "--finetune_strategy", "full_finetune",
+                  "--pretrained_scheme", "b1", "--seed", "42", "--epochs", "2",
+                  "--aggregation", "coo", "--device", "cpu"]
+# A rank of the partitioned runs: the driver with dropout off and 2 layers.
+PARTITION_RANK = ("import sys; from gnn_pretraining_tpu_torch import config; "
+                  "config.DROPOUT_RATE = 0.0; "
+                  f"config.GNN_NUM_LAYERS = {PARTITION_LAYERS}; "
+                  "from gnn_pretraining_tpu_torch import run_finetune; "
+                  "sys.exit(run_finetune.main(sys.argv[1:]))")
+
+
+def cora_summary(root):
+    return json.loads((root / "metrics" / config.FINETUNE_PROJECT_NAME
+                       / "Cora_NC_full_finetune_b1_42.summary.json").read_text())
+
+
+@pytest.fixture(scope="module")
+def partition_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("partition_drivers")
+    stores = tmp / "processed"
+    stores.mkdir()
+    for key, store in synthetic_planetoid_stores("Cora", np.random.default_rng(5), 64, 120,
+                                                 20, 12, 12).items():
+        store.save(stores / f"{key}.npz")
+    base = PARTITION_CELL + ["--processed_dir", str(stores)]
+    out = {"tmp": tmp, "base": base, "logs": {}}
+    for partition in ("edge", "node"):
+        root = tmp / partition
+        out["logs"][partition] = launch(
+            None, [base + ["--partition", partition, "--out_root", str(root)],
+                   base + ["--partition", partition, "--out_root", str(tmp / f"{partition}1")]],
+            tmp, code=PARTITION_RANK)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(config, "DROPOUT_RATE", 0.0)
+        mp.setattr(config, "GNN_NUM_LAYERS", PARTITION_LAYERS)
+        for partition in ("none", "node"):          # node: one rank, no launcher
+            rc, _, _ = call(run_finetune.main, base + ["--partition", partition, "--out_root",
+                                                       str(tmp / f"one_rank_{partition}")])
+            assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("partition", ["edge", "node"])
+def test_partitioned_driver_matches_the_single_device_cell(partition_runs, partition):
+    tmp = partition_runs["tmp"]
+    got, want = cora_summary(tmp / partition), cora_summary(tmp / "one_rank_none")
+    assert got["fidelity/completed"] == 1
+    assert not (tmp / f"{partition}1").exists()                     # rank 0 alone writes
+    for log in partition_runs["logs"][partition]:            # both ranks ran the cell
+        assert "All runs completed." in log and "runs on rank 0" not in log
+    np.testing.assert_allclose(got["test/loss"], want["test/loss"], rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(got["test/accuracy"], want["test/accuracy"], rtol=0, atol=1e-9)
+
+
+def test_one_rank_with_partition_takes_the_single_device_path(partition_runs):
+    tmp = partition_runs["tmp"]
+    got, want = cora_summary(tmp / "one_rank_node"), cora_summary(tmp / "one_rank_none")
+    assert not torch.distributed.is_initialized()
+    for key in ("test/loss", "test/accuracy", "test/auc", "test/f1"):
+        if key in want:
+            assert got[key] == want[key], key

@@ -6,7 +6,9 @@ processes (``python -c`` importing this module, one intra-op thread each),
 which form a gloo group over a ``FileStore`` under ``tmp``, build the data
 axis (``parallel.mesh.make_mesh``) and run ``JOBS[job](axis, inputs)``, and
 returns each rank's result dict. The ranks import torch and the port alone,
-never JAX: the test process holds the JAX reference.
+never JAX: the test process holds the JAX reference. The jobs: ``parts``
+and ``step`` (data parallelism), ``partition_parts`` and
+``partition_steps`` (the edge- and node-partitioned paths).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
@@ -190,4 +193,163 @@ def step(axis, inputs):
                        "counters": counters}
     runs.append(pt.pretrain(rcfg, epochs=2, **kw))
     out["resume_runs"] = runs
+    return out
+
+
+def full_graph(g: dict):
+    """A one-graph ``GraphBatch`` of the numpy arrays ``g`` (``x``,
+    ``senders``, ``receivers``, ``edge_mask``, ``node_mask``)."""
+    from gnn_pretraining_tpu_torch.data.batch import GraphBatch
+
+    n, e = g["x"].shape[0], g["senders"].shape[0]
+    t = lambda a: torch.from_numpy(a.copy())  # noqa: E731
+    return GraphBatch(
+        x=t(g["x"]), senders=t(g["senders"]), receivers=t(g["receivers"]),
+        edge_mask=t(g["edge_mask"]), edge_graph=torch.zeros(e, dtype=torch.int32),
+        node_mask=t(g["node_mask"]), node_graph=torch.zeros(n, dtype=torch.int32),
+        graph_mask=torch.ones(1), node_start=torch.zeros(1, dtype=torch.int32),
+        n_node=torch.full((1,), n, dtype=torch.int32),
+        n_edge=torch.full((1,), e, dtype=torch.int32), y=torch.zeros(1, dtype=torch.int32),
+        graph_properties=torch.zeros(1, 12))
+
+
+@job
+def partition_parts(axis, inputs):
+    """The all-to-all on a rank-numbered tensor (forward and the gradient of
+    a weighted sum); the edge-partitioned aggregation, through
+    ``gin_aggregate_coo(edge_axis=)`` on this rank's block and through
+    ``edge_partitioned_aggregate``; the node-partitioned aggregation on this
+    rank's rows: outputs and the gradients of ``sum(out * w)`` in h and eps."""
+    from gnn_pretraining_tpu_torch.ops.spmm import gin_aggregate_coo
+    from gnn_pretraining_tpu_torch.parallel.edge_partition import (
+        edge_partitioned_aggregate,
+        local_edges,
+    )
+    from gnn_pretraining_tpu_torch.parallel.node_partition import (
+        build_node_partition_plan,
+        node_partitioned_aggregate,
+        pad_node_rows,
+    )
+
+    out = {}
+    x = inputs["a2a"]["x"][axis.rank].clone().requires_grad_(True)
+    y = axis.all_to_all(x)
+    (y * inputs["a2a"]["w"][axis.rank]).sum().backward()
+    out["a2a"] = {"y": y.detach(), "grad": x.grad, "route": axis.all_to_all_route("cpu"),
+                  "calls": dict(axis.all_to_all_calls)}
+
+    g = inputs["graph"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+
+    def grads(fn, h_full, w):
+        h = t(h_full).clone().requires_grad_(True)
+        eps = torch.tensor(g["eps"], requires_grad=True)
+        z = fn(h, eps)
+        (z * t(w)).sum().backward()
+        return {"z": z.detach(), "dh": h.grad, "deps": eps.grad}
+
+    s, r, m = (t(a) for a in local_edges(g["senders"], g["receivers"], g["edge_mask"], axis))
+    out["coo"] = grads(lambda h, eps: gin_aggregate_coo(h, s, r, m, eps, edge_axis=axis),
+                       g["h"], g["w"])
+    pad = inputs["shard_edges"]
+    out["edge"] = grads(lambda h, eps: edge_partitioned_aggregate(
+        axis, h, *(t(a) for a in pad), eps), g["h"], g["w"])
+
+    plan = build_node_partition_plan(g["senders"], g["receivers"], g["edge_mask"],
+                                     g["h"].shape[0], axis.size)
+    rows = slice(axis.rank * plan.n_loc, (axis.rank + 1) * plan.n_loc)
+    out["node"] = grads(lambda h, eps: node_partitioned_aggregate(axis, h, plan, eps),
+                        pad_node_rows(g["h"], plan)[rows], pad_node_rows(g["w"], plan)[rows])
+    out["node"]["calls"] = dict(axis.all_to_all_calls)
+    return out
+
+
+def _partitioned_model(domain, mode, axis, state_dict):
+    """A ``coo`` model for ``mode`` on ``axis`` with ``state_dict``'s weights,
+    and the head's own dropout source (node) or None (edge)."""
+    from gnn_pretraining_tpu_torch.finetune import node_parallel
+    from gnn_pretraining_tpu_torch.models.finetune_model import FinetuneGNN
+    from gnn_pretraining_tpu_torch.parallel.data_parallel import rank_seed
+
+    if mode == "edge":
+        model, head = FinetuneGNN(domain, "coo", device="cpu", edge_axis=axis), None
+        model.seed_dropout(1)
+    else:
+        model = FinetuneGNN(domain, "coo", device="cpu", axis=axis,
+                            aggregate_fn=node_parallel.HaloAggregate(axis))
+        model.seed_dropout(rank_seed(1, axis.rank))
+        head = node_parallel.replicate_head_dropout(model, 2)
+    model.load_state_dict(state_dict)
+    return model, head
+
+
+@job
+def partition_steps(axis, inputs):
+    """For each (task, mode) of ``inputs["cases"]``: the partitioned eval step
+    on the given weights, then a train step with the given dropout
+    keep-masks (the node ranks take their rows) and, for link prediction,
+    the given Gumbel draw of the miner, then a train step on the rank's own
+    draws; outputs, gradients and the state after each train step. The first
+    train step takes the given ReLU branches (the node ranks their rows)."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.finetune import edge_parallel, node_parallel
+    from gnn_pretraining_tpu_torch.finetune import finetune as ft
+    from gnn_pretraining_tpu_torch.finetune.mining import build_forbidden_mask
+    from gnn_pretraining_tpu_torch.parallel.node_partition import pad_node_rows
+    from gnn_pretraining_tpu_torch.utils import relu_branches
+
+    graph = full_graph(inputs["graph"])
+    out = {}
+    for task, mode in inputs["cases"]:
+        spec = inputs[task]
+        cfg = config.FinetuneConfig(spec["domain"], "full_finetune", "b1", 0)
+        model, head = _partitioned_model(spec["domain"], mode, axis, spec["state_dict"])
+        optimizer, labels, _ = ft.create_finetune_optimizer(model, cfg)
+        extra, trunk, branches = (), list(spec["trunk_masks"]), list(spec["branches"])
+        if mode == "node":
+            plan, shard = node_parallel.prepare(graph, axis, "cpu")
+            extra = (shard,)
+            rows = slice(axis.rank * plan.n_loc, (axis.rank + 1) * plan.n_loc)
+            trunk = [torch.from_numpy(pad_node_rows(k.numpy(), plan)[rows]) for k in trunk]
+            # The node rows' records to this rank's rows; the pairs' whole.
+            branches = [torch.from_numpy(pad_node_rows(b.numpy(), plan)[rows])
+                        if b.shape[0] == graph.num_nodes else b for b in branches]
+        if task == "nc":
+            if mode == "edge":
+                train, evaluate = edge_parallel.make_nc_steps_edge_parallel(
+                    model, cfg, optimizer, labels, graph, axis)
+            else:
+                train, evaluate = node_parallel.make_nc_steps_node_parallel(
+                    model, cfg, optimizer, labels, axis)
+            kwargs = {}
+        else:
+            forbidden = build_forbidden_mask(graph.num_nodes, spec["train_edges"],
+                                             node_mask=inputs["graph"]["node_mask"])
+            generator = torch.Generator().manual_seed(0)
+            if mode == "edge":
+                train, evaluate = edge_parallel.make_lp_steps_edge_parallel(
+                    model, cfg, optimizer, labels, graph, axis, forbidden, spec["num_hard"],
+                    generator)
+            else:
+                train, evaluate = node_parallel.make_lp_steps_node_parallel(
+                    model, cfg, optimizer, labels, axis, forbidden, spec["num_hard"],
+                    generator)
+            kwargs = {"gumbel": spec["gumbel"]}
+        case = {"eval": [a.clone() for a in evaluate(*spec["eval_args"], *extra)]}
+        if head is None:
+            model.dropout.inject(trunk + list(spec["head_masks"]))
+        else:
+            model.dropout.inject(trunk)
+            head.inject(spec["head_masks"])
+        with relu_branches.replay(model, branches) as flips:
+            case["train"] = [a.detach().clone() for a in train(*spec["train_args"], *extra,
+                                                               **kwargs)]
+        case["relu_flips"] = sum(flips)
+        assert not model.dropout.injected and (head is None or not head.injected)
+        case["grads"] = {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
+        case["after_one"] = _state(model)
+        train(*spec["train_args"], *extra)
+        case["after_two"] = _state(model)
+        out[f"{task}-{mode}"] = case
     return out

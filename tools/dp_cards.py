@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Data parallelism over every card of one host, on NCCL.
+"""Data parallelism and partitioned fine-tuning over every card of one host,
+on NCCL.
 
     python3 tools/dp_cards.py
 
-chip_smoke.py's dp phase with one rank per card instead of two gloo ranks on
-one: the s5 data-parallel step (each rank's K1 and K2 launches, its losses
-and gradients against one process stepping on the union of the ranks'
-shares with the same draws, kinks and keep-masks, the ranks bitwise equal
-after two steps, the step's CUDA-event median beside the single process's),
-the ENZYMES graph-classification step and eval step, then
+chip_smoke.py's dp phase (12c) with one rank per card instead of two gloo
+ranks on one: the s5 data-parallel step (each rank's K1 and K2 launches, its
+losses and gradients against one process stepping on the union of the
+ranks' shares with the same draws, kinks and keep-masks, the ranks bitwise
+equal after two steps, the step's CUDA-event median beside the single
+process's), the ENZYMES graph-classification step and eval step, then
 ``run_pretrain --dp auto`` with no launcher, which starts one rank per card
-(``parallel.mesh.spawn_local_ranks``). Needs two or more cards; prints one
-JSON line per check and exits non-zero when one fails.
+(``parallel.mesh.spawn_local_ranks``). Then its partition phase (12d) the
+same way: the edge- and node-partitioned Cora_NC and Cora_LP steps against
+one process's ``coo`` steps, the 6x store's step medians, halo and psum
+bytes and the all-to-all on its native NCCL route, and ``run_finetune
+--partition edge`` and ``--partition node`` with no launcher (one rank per
+card, dropout off) against ``--partition none``. Needs two or more cards;
+prints one JSON line per check and exits non-zero when one fails.
 """
 
 from __future__ import annotations
@@ -42,7 +48,11 @@ def main() -> int:
         chip_smoke.resume_stores(resume)
         launches = chip_smoke.dp_phase(torch.device("cuda"), processed, resume,
                                        Path(tmp) / "dp", card, n=cards, backend="nccl")
-    chip_smoke.emit({"phase": "dp_cards", "cards": cards, "launches": launches, "ok": True})
+        partition = chip_smoke.partition_phase(torch.device("cuda"), processed,
+                                               Path(tmp) / "partition", card, n=cards,
+                                               backend="nccl")
+    chip_smoke.emit({"phase": "dp_cards", "cards": cards, "launches": launches,
+                     "partition_launches": partition, "ok": True})
     return 0
 
 
