@@ -175,6 +175,34 @@ toolkit (nvcc). Phases, each printed as one JSON line:
                 none, Cora_NC b1 coo, 2 epochs, no launcher, dropout off: on
                 one card the single-device path, the test loss within 5e-4
                 and the accuracy equal;
+ 12e. chunked -- run after phase 15 (profile), on phase 8's stores: the
+                chunked pretrain runner (make_chunked_train_step: one CUDA
+                graph of the train step per scheme, replayed). For s2, s5
+                and b4: the step
+                captured, its K1 and K2 launches per step counted at
+                capture (and none on replay); one chunk of 8 steps replayed
+                against 8 eager steps (make_train_step) of a twin built from
+                the same seeds on the same batches and PCGrad orders: every
+                view, mask, negative and dropout keep-mask bitwise equal,
+                the step-1 losses within CHUNK_LOSS_TOL of max |ref|, every
+                packed metric row within TRAIN_LOSS_TOL of the eager
+                metrics (PCGrad's conflict and projection counts apart by
+                at most its decisions on leaves whose gradient is rounding:
+                the biases a BatchNorm follows, ROUNDING_BIASES, and past
+                two tasks a projected scalar leaf),
+                the parameters after the chunk within phase 8's lr
+                distances, the generators' states and the counters equal;
+                the CUDA-event median ms per step replayed and eager, with
+                device busy and idle share (torch.profiler); pretrain() s5
+                for 1 epoch on the entry stores with chunk_steps=32 and
+                with chunk_steps=1, seconds per step, the same metric keys
+                and finite losses; build_batch's host ms per s5 step,
+                numpy beside native. Last in the script: a capture forced
+                to fail (a host read inside the captured step) makes the
+                runner raise, at capture and when asked for a chunk, and
+                trains nothing. Phases 8, 11, 12, 12b, 12c and 13 run
+                pretrain() chunked too: its kernels' wrappers count the
+                capture's warm-up step and the capture, not the replays;
  13. data    -- the port's offline preprocessing (data/setup.py, host code)
                 on this machine, then the kernels driven from the stores it
                 made: (1) setup.main at scale 1 without raw files, one
@@ -419,13 +447,13 @@ DATA_PRETRAIN_GRAPHS = {"MUTAG": 18, "PROTEINS": 111, "NCI1": 411, "ENZYMES": 60
 DATA_CSR_SCALE = 6.0
 DATA_FT_EPOCHS = 3
 DATA_CSR_EPOCHS = 1
-DATA_S2_STEPS, DATA_S2_VAL_BATCHES = 46, 5
+DATA_S2_VAL_BATCHES = 5   # its 46 train steps replay one captured step
 DATA_LAUNCHES = {
     "pretrain s2": lambda epochs: {
-        "gin_spmm_fwd": DATA_S2_STEPS * 80 + DATA_S2_VAL_BATCHES * 2 * 10,
-        "gin_spmm_bwd": DATA_S2_STEPS * 80,
-        "ntxent_fwd": DATA_S2_STEPS * 8 + DATA_S2_VAL_BATCHES * 2,
-        "ntxent_bwd": DATA_S2_STEPS * 8},
+        "gin_spmm_fwd": pretrain_step_calls() * 80 + DATA_S2_VAL_BATCHES * 2 * 10,
+        "gin_spmm_bwd": pretrain_step_calls() * 80,
+        "ntxent_fwd": pretrain_step_calls() * 8 + DATA_S2_VAL_BATCHES * 2,
+        "ntxent_bwd": pretrain_step_calls() * 8},
     "finetune ENZYMES b1": lambda epochs: {
         "gin_spmm_fwd": epochs * (15 * 5 + 2 * 5) + 2 * 5, "gin_spmm_bwd": epochs * 15 * 4},
     "finetune Cora_NC b1 csr": lambda epochs: {
@@ -1299,13 +1327,9 @@ K2_COUNTERS = ("ntxent_fwd", "ntxent_bwd")
 
 def counters() -> dict:
     """name -> the launch-counting wrapper of every kernel of the port."""
-    from gnn_pretraining_tpu_torch.ops import ntxent
-    from gnn_pretraining_tpu_torch.ops.spmm import gin_spmm_bwd, gin_spmm_fwd
-    from gnn_pretraining_tpu_torch.ops.spmm_csr import csr_spmm_bwd, csr_spmm_fwd
+    from gnn_pretraining_tpu_torch.pretrain.chunked import kernel_counters
 
-    return {"gin_spmm_fwd": gin_spmm_fwd, "gin_spmm_bwd": gin_spmm_bwd,
-            **{name: getattr(ntxent, name) for name in K2_COUNTERS},
-            "csr_spmm_fwd": csr_spmm_fwd, "csr_spmm_bwd": csr_spmm_bwd}
+    return kernel_counters()
 
 
 def step_draws(cfg, batches, device):
@@ -1629,6 +1653,354 @@ def pretrain_entry_phase(device, entry_dir: Path, out_root: Path, scheme: str) -
         raise AssertionError(f"pretrain() {scheme} / finetune() from its checkpoint "
                              "failed its checks")
     return seconds / len(train_rows)
+
+
+CHUNK_SCHEMES = ("s2", "s5", "b4")
+CHUNK_STEPS = 8                      # one chunk replayed against 8 eager steps
+CHUNK_LOSS_TOL = 1e-5                # step-1 losses, |diff| over max |eager|
+# PCGrad decides a conflict by the sign of a per-leaf dot product and a
+# projection by the leaf's gradients being nonzero. On a bias that a
+# BatchNorm follows (an encoder's linear, a GIN MLP's first layer) the
+# gradient is 0 in exact arithmetic and ~1e-9 of the others in f32, and
+# with more than two tasks a scalar leaf (a layer's eps) projected once is
+# 0 in exact arithmetic: there the decisions are rounding's, and two runs
+# whose sums add in another order (the pooling's atomics) may take them
+# apart. At most one of each per task pair on each such leaf.
+ROUNDING_BIASES = ("linear.bias", "gin_conv.nn.0.bias")
+CHUNK_REPLAY_REPS = 10
+CHUNK_EAGER_REPS = 3
+CHUNK_ENTRY_SCHEME = "s5"
+BUILD_TIMING_STEPS = 40
+
+
+def pretrain_step_calls() -> int:
+    """How often a chunked pretrain() runs its step through the kernels'
+    wrappers: the capture's warm-up steps and the capture. Its steps replay
+    the captured launches, which the wrappers do not count."""
+    from gnn_pretraining_tpu_torch.pretrain.chunked import CAPTURE_WARMUP_STEPS
+
+    return CAPTURE_WARMUP_STEPS + 1
+
+
+def flat_tensors(obj) -> list:
+    if torch.is_tensor(obj):
+        return [obj]
+    return [t for item in obj for t in flat_tensors(item)]
+
+
+def draw_recording(streams, model, out: list):
+    """Record what a step's random sources hand out, in call order: views,
+    mask scores, negatives and dropout keep-masks."""
+    import contextlib
+
+    def wrap(obj, name):
+        real = getattr(obj, name)
+
+        def recorded(*args, **kwargs):
+            drawn = real(*args, **kwargs)
+            out.append(drawn)
+            return drawn
+
+        return mock.patch.object(obj, name, recorded)
+
+    stack = contextlib.ExitStack()
+    for obj, name in ((streams["views"], "two_views"), (streams["task_draws"], "mask_scores"),
+                      (streams["task_draws"], "negatives"), (model.dropout, "keep_mask")):
+        stack.enter_context(wrap(obj, name))
+    return stack
+
+
+def profiled(call, reps: int = PROFILE_REPS) -> list:
+    """(kernel name, device ms per call, launches per call) of ``call`` under
+    torch.profiler, kernels and copies only, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    return sorted(
+        ((e.key, e.self_device_time_total / reps / 1e3, e.count // reps)
+         for e in prof.key_averages()
+         # Kernels and copies only: an annotated range such as the
+         # optimizer's step shows on the device timeline too, and would
+         # count the kernels under it a second time.
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)
+         and not e.key.startswith("Optimizer.")),
+        key=lambda k: -k[1])
+
+
+def chunked_step_phase(device, processed_dir: Path, scheme: str) -> dict:
+    """The train step of ``scheme`` captured in a CUDA graph
+    (make_chunked_train_step) on phase 8's stores: its K1 and K2 launches
+    counted at capture; one chunk of CHUNK_STEPS steps replayed against as
+    many eager steps (make_train_step) of a twin from the same seeds on the
+    same batches: every view, mask, negative and dropout keep-mask bitwise
+    equal, the step-1 losses within CHUNK_LOSS_TOL, every metric of every
+    step within TRAIN_LOSS_TOL (PCGrad's conflicts and projections apart by
+    at most its decisions on ROUNDING_BIASES and, past two tasks, on the
+    scalar leaves), the
+    parameters after the chunk within phase 8's lr distances, the
+    generators' states and the counters equal; then each step's CUDA-event
+    median and device busy, replayed and eager."""
+    from gnn_pretraining_tpu_torch.pretrain import pretrain as pt
+    from gnn_pretraining_tpu_torch.pretrain.chunked import StepLayout, stack_batches, warmup_row
+    from gnn_pretraining_tpu_torch.pretrain.optimizers import create_task_specific_optimizer
+
+    cfg, loader = pretrain_loader(processed_dir, scheme)
+    total_steps = len(loader) * PRETRAIN_ENTRY_EPOCHS
+    k = sum(t != "domain_adv" for t in cfg.active_tasks)
+    layout = StepLayout.of_loader(loader, k)
+    host = [loader.sample_step() for _ in range(CHUNK_STEPS)]
+
+    def fresh():
+        model = pt.build_pretrain_model(cfg, "pallas", device)
+        optimizer, labels, lrs = create_task_specific_optimizer(model, cfg.active_tasks)
+        return model, optimizer, pt.random_streams(cfg, model, device), labels, lrs
+
+    model, optimizer, streams, labels, lrs = fresh()
+    run_chunk, names = pt.make_chunked_train_step(model, cfg, optimizer, total_steps, streams)
+    state = pt.PretrainState()
+    kernels = counters()
+    before = {name: c.launches for name, c in kernels.items()}
+    refs = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with draw_recording(streams, model, refs):
+        run_chunk.capture(state, warmup_row(loader, layout), layout)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    around_capture = {name: c.launches - before[name] for name, c in kernels.items()}
+    refs = flat_tensors(refs[len(refs) // 2:])   # the warm-up's draws came first
+    perms = [torch.randperm(k, generator=streams["pcgrad"]).numpy() if k > 1 else None
+             for _ in range(CHUNK_STEPS)]
+    words = stack_batches(host, layout, perms, pin=True).to(device, non_blocking=True)
+    graph, graph_draws = run_chunk.graph, []
+
+    class RecordingGraph:
+        def replay(self):
+            graph.replay()
+            graph_draws.append([r.clone() for r in refs])
+
+    run_chunk.graph = RecordingGraph()
+    try:
+        before = {name: c.launches for name, c in kernels.items()}
+        packed = run_chunk(state, words, layout).cpu().numpy()
+        on_replay = {name: c.launches - before[name] for name, c in kernels.items()}
+    finally:
+        run_chunk.graph = graph
+
+    twin, twin_opt, twin_streams, _, _ = fresh()
+    step = pt.make_train_step(twin, cfg, twin_opt, total_steps, twin_streams["views"],
+                              twin_streams["pcgrad"], twin_streams["task_draws"])
+    twin_state = pt.PretrainState()
+    eager_draws, eager = [], []
+    for b in host:
+        drawn = []
+        with draw_recording(twin_streams, twin, drawn):
+            m = step(twin_state, {d: x.to(device) for d, x in b.items()})
+        eager_draws.append([r.clone() for r in flat_tensors(drawn)])
+        eager.append({n: float(v) for n, v in m.items()})
+    torch.cuda.synchronize()
+
+    draws_equal = bool(len(graph_draws) == CHUNK_STEPS and all(
+        len(g) == len(e) and all(torch.equal(a, b) for a, b in zip(g, e))
+        for g, e in zip(graph_draws, eager_draws)))
+    losses = [n for n in names if n.startswith("train/loss")]
+    scale = max(abs(eager[0][n]) for n in losses)
+    step1_err = max(abs(float(packed[names.index(n), 0]) - eager[0][n]) for n in losses) / scale
+    metric_err = {n: max(abs(float(packed[i, j]) - eager[j][n]) / max(abs(eager[j][n]), 1e-6)
+                         for j in range(CHUNK_STEPS))
+                  for i, n in enumerate(names) if not n.startswith("gradient_surgery/")}
+    worst = max(metric_err, key=metric_err.get)
+    surgery = {n: [float(packed[names.index(n), j]) - eager[j][n] for j in range(CHUNK_STEPS)]
+               for n in ("gradient_surgery/total_conflicts",
+                         "gradient_surgery/total_projections") if n in names}
+    rounding = k * (k - 1) // 2 * sum(n.endswith(ROUNDING_BIASES) or (k > 2 and p.numel() == 1)
+                                      for n, p in twin.named_parameters())
+    conflicts_ok = all(abs(d) <= rounding for diffs in surgery.values() for d in diffs)
+    grads = {n: p.grad for n, p in twin.named_parameters()}
+    g_max = max(float(g.abs().max()) for g in grads.values())
+    params, twin_params = dict(model.named_parameters()), dict(twin.named_parameters())
+    dist_max, dist_sum, clear_count = 0.0, 0.0, 0
+    with torch.no_grad():
+        for n, label in labels.items():
+            dist = (params[n] - twin_params[n]).abs() / lrs[label]
+            clear = grads[n].abs() > 1e-3 * g_max
+            dist_max = max(dist_max, float(dist.max()))
+            dist_sum += float(dist[clear].sum())
+            clear_count += int(clear.sum())
+    streams_equal = all(
+        np.array_equal(np.asarray(a), np.asarray(b)) for name in ("dropout", "views", "task_draws")
+        for a, b in [(pt.stream_states(streams)[name], pt.stream_states(twin_streams)[name])])
+    expected = launches_of(scheme)
+    calls = pretrain_step_calls()
+    checks = {
+        "launches_at_capture": run_chunk.capture_launches == expected
+        and around_capture == {n: calls * v for n, v in expected.items()}
+        and not any(on_replay.values()),
+        "draws_bitwise": draws_equal,
+        "step1_losses": step1_err <= CHUNK_LOSS_TOL,
+        "packed_rows": names == sorted(eager[0]) and packed.shape == (len(names), CHUNK_STEPS)
+        and all(e <= TRAIN_LOSS_TOL for e in metric_err.values()) and conflicts_ok,
+        "params_after_chunk": dist_max <= 2.02 and dist_sum / max(clear_count, 1) <= 0.05,
+        "streams_and_counters": streams_equal and state.opt_step == twin_state.opt_step
+        == CHUNK_STEPS and run_chunk.replays == CHUNK_STEPS
+        and state.device_counters(device).tolist() == twin_state.device_counters(device).tolist(),
+    }
+
+    one = stack_batches(host[:1], layout, perms[:1], pin=True).to(device)
+    first = {d: x.to(device) for d, x in host[0].items()}
+    timed = {"replayed": (lambda: run_chunk(state, one, layout), CHUNK_REPLAY_REPS),
+             "eager": (lambda: step(twin_state, first), CHUNK_EAGER_REPS)}
+    times = {}
+    for how, (call, reps) in timed.items():
+        event = event_median(call, reps)
+        top = profiled(call, reps)
+        busy = sum(ms for _, ms, _ in top)
+        times[how] = {"event_ms": event, "device_busy_ms": busy if top else None,
+                      "idle_share": 1 - busy / event if top else None,
+                      "kernels_per_step": sum(c for _, _, c in top)}
+    ok = all(checks.values())
+    emit({"phase": "chunked", "scheme": scheme, "capture_s": capture_s,
+          "launches_per_step_at_capture": run_chunk.capture_launches,
+          "launches_around_capture": around_capture, "launches_on_replay": on_replay,
+          "expected": expected, "steps": CHUNK_STEPS, "draw_tensors_per_step": len(refs),
+          "step1_loss_err": step1_err, "metric_max_rel_err": metric_err[worst],
+          "metric_max_rel_err_key": worst, "pcgrad_replayed_minus_eager": surgery,
+          "pcgrad_projections": [e.get("gradient_surgery/total_projections") for e in eager],
+          "pcgrad_rounding_decisions": rounding,
+          "param_max_dist_over_lr": dist_max,
+          "param_mean_dist_over_lr": dist_sum / max(clear_count, 1),
+          "times": times, "checks": checks, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the chunked {scheme} step failed its checks: {checks}")
+    run_chunk.release()
+    return times
+
+
+def chunked_entry_phase(entry_dir: Path, out_root: Path) -> dict:
+    """pretrain() of CHUNK_ENTRY_SCHEME for 1 epoch on the entry stores with
+    chunk_steps=32 and with chunk_steps=1: seconds per step, finite losses,
+    the same metric keys and steps."""
+    from gnn_pretraining_tpu_torch import config
+    from gnn_pretraining_tpu_torch.pretrain.pretrain import pretrain
+
+    cfg = config.PretrainConfig(CHUNK_ENTRY_SCHEME, 42)
+    out = {}
+    for chunk_steps in (32, 1):
+        root = out_root / f"chunked_entry_{chunk_steps}"
+        t0 = time.perf_counter()
+        pretrain(cfg, aggregation="pallas", epochs=PRETRAIN_ENTRY_EPOCHS,
+                 processed_dir=entry_dir, out_root=root, chunk_steps=chunk_steps)
+        seconds = time.perf_counter() - t0
+        log = root / "metrics" / config.PRETRAIN_PROJECT_NAME / f"{cfg.run_name}.jsonl"
+        rows = [r for r in map(json.loads, open(log)) if "train/loss/total" in r]
+        out[chunk_steps] = {"seconds": seconds, "steps": len(rows),
+                            "seconds_per_step": seconds / len(rows),
+                            "keys": sorted(rows[0]),
+                            "finite": bool(np.isfinite([r["train/loss/total"] for r in rows]).all()),
+                            "first_loss": rows[0]["train/loss/total"],
+                            "last_loss": rows[-1]["train/loss/total"]}
+    a, b = out[32], out[1]
+    ok = bool(a["finite"] and b["finite"] and a["keys"] == b["keys"] and a["steps"] == b["steps"])
+    emit({"phase": "chunked", "entry": cfg.run_name, "stores": entry_dir.name,
+          "seconds_per_step": {"chunk_steps=32": a["seconds_per_step"],
+                               "chunk_steps=1": b["seconds_per_step"]},
+          "runs": {str(c): {k: v for k, v in r.items() if k != "keys"} for c, r in out.items()},
+          "same_metric_keys": a["keys"] == b["keys"], "ok": ok})
+    if not ok:
+        raise AssertionError("pretrain() chunked and per step disagree in their rows")
+    return {"chunk_steps=32": a["seconds_per_step"], "chunk_steps=1": b["seconds_per_step"]}
+
+
+def batch_build_phase(processed_dir: Path) -> dict:
+    """Host ms per s5 step of build_batch, the numpy builder beside the
+    native one (each warmed up on the first draw), on the same
+    BUILD_TIMING_STEPS draws of phase 8's stores; the two builders' arrays
+    equal."""
+    from gnn_pretraining_tpu_torch.data.batch import build_batch, build_batch_numpy
+
+    _, loader = pretrain_loader(processed_dir, "s5")
+    draws = [loader.sample_indices() for _ in range(BUILD_TIMING_STEPS)]
+    stores, spd = loader.domain_stores, loader.samples_per_domain
+    ms, built = {}, {}
+    for name, build in (("numpy", build_batch_numpy), ("native", build_batch)):
+        for d, ix in draws[0].items():     # the library's build and load, the store's arrays
+            build(stores[d], ix, *loader.pads[d], spd, True)
+        t = time.perf_counter()
+        built[name] = [{d: build(stores[d], ix, *loader.pads[d], spd, True)
+                        for d, ix in chosen.items()} for chosen in draws]
+        ms[name] = (time.perf_counter() - t) * 1e3 / BUILD_TIMING_STEPS
+    equal = all(getattr(a[d], f).numpy().tobytes() == getattr(b[d], f).numpy().tobytes()
+                for a, b in zip(built["numpy"], built["native"]) for d in a
+                for f in ("x", "senders", "receivers", "edge_mask", "edge_graph", "node_mask",
+                          "node_graph", "graph_mask", "node_start", "n_node", "n_edge", "y",
+                          "graph_properties"))
+    emit({"phase": "chunked", "build_batch_ms_per_s5_step": ms, "steps": BUILD_TIMING_STEPS,
+          "equal": equal, "ok": equal})
+    if not equal:
+        raise AssertionError("the native batch builder differs from the numpy one")
+    return ms
+
+
+def chunked_phase(device, processed_dir: Path, entry_dir: Path, out_root: Path) -> dict:
+    """Phase 12e: chunked_step_phase per scheme of CHUNK_SCHEMES, the entry
+    seconds and the builders' host time."""
+    out = {"steps": {s: chunked_step_phase(device, processed_dir, s) for s in CHUNK_SCHEMES}}
+    out["entry_seconds_per_step"] = chunked_entry_phase(entry_dir, out_root)
+    out["build_batch_ms"] = batch_build_phase(processed_dir)
+    return out
+
+
+def capture_failure_phase(device, processed_dir: Path) -> None:
+    """No fallback: a b4 step that reads a value on the host inside the
+    captured region (clip's norm) cannot be captured; the runner raises,
+    at capture and again when asked to run a chunk, and trains nothing."""
+    from gnn_pretraining_tpu_torch.pretrain import pretrain as pt
+    from gnn_pretraining_tpu_torch.pretrain.chunked import StepLayout, stack_batches, warmup_row
+    from gnn_pretraining_tpu_torch.pretrain.optimizers import create_task_specific_optimizer
+
+    cfg, loader = pretrain_loader(processed_dir, "b4")
+    k = sum(t != "domain_adv" for t in cfg.active_tasks)
+    layout = StepLayout.of_loader(loader, k)
+    model = pt.build_pretrain_model(cfg, "pallas", device)
+    optimizer, _, _ = create_task_specific_optimizer(model, cfg.active_tasks)
+    streams = pt.random_streams(cfg, model, device)
+    run_chunk, _ = pt.make_chunked_train_step(model, cfg, optimizer, len(loader), streams)
+    start = {n: v.clone() for n, v in model.state_dict().items()}
+    state = pt.PretrainState()
+    real_clip = pt.clip_grads_torch
+
+    def syncing_clip(grads):
+        clipped, total = real_clip(grads)
+        float(total)                # a host read: refused while capturing
+        return clipped, total
+
+    raised = []
+    words = stack_batches([loader.sample_step()], layout,
+                          [np.arange(k)]).to(device)
+    with mock.patch.object(pt, "clip_grads_torch", syncing_clip):
+        for attempt in (lambda: run_chunk.capture(state, warmup_row(loader, layout), layout),
+                        lambda: run_chunk(state, words, layout)):
+            try:
+                attempt()
+                raised.append(None)
+            except Exception as err:  # noqa: BLE001 -- the point: what it raised
+                raised.append(f"{type(err).__name__}: {str(err)[:160]}")
+    torch.cuda.synchronize()
+    untouched = all(torch.equal(v, start[n]) for n, v in model.state_dict().items())
+    ok = bool(all(raised) and run_chunk.graph is None and run_chunk.replays == 0
+              and state.opt_step == 0 and untouched
+              and float(torch.ones(4, device=device).sum()) == 4.0)
+    emit({"phase": "chunked", "forced_capture_failure": raised,
+          "graph": run_chunk.graph is not None, "replays": run_chunk.replays,
+          "opt_step": state.opt_step, "weights_untouched": untouched, "ok": ok})
+    if not ok:
+        raise AssertionError("a failed capture did not raise, or trained")
 
 
 def reference_pt(path: Path, model, epoch: int, val_metrics) -> float:
@@ -2125,13 +2497,16 @@ def resume_phase(device, resume_dir: Path, out_root: Path) -> None:
     epoch6_a = [r for r in steps(rows_a) if r["train/progress/epoch"] == RESUME_EPOCHS]
     epoch6_b = steps(rows_b)
     steps_per_epoch = len(steps(rows_a)) // RESUME_EPOCHS
-    # Check 3: per train step phase 8's counts; the epoch's evaluation runs
-    # every (task, domain, val batch) forward once more, without backward.
+    # Check 3: phase 8's counts per step the wrappers ran; the epoch's
+    # evaluation runs every (task, domain, val batch) forward once more,
+    # without backward.
     k1, k2 = STEP_LAUNCHES[RESUME_SCHEME]
     val_batches = sum(math.ceil(s["val"] / config.PRETRAIN_BATCH_SIZE) for s in stores.values())
     forwards = sum(2 if t in ("node_contrast", "graph_contrast") else 1 for t in cfg.active_tasks)
     contrast = sum(t in ("node_contrast", "graph_contrast") for t in cfg.active_tasks)
-    n = len(epoch6_b)
+    # B' runs its step chunked: the wrappers count the capture's warm-up and
+    # the capture (pretrain_step_calls), not its replays.
+    n = pretrain_step_calls() if epoch6_b else 0
     expected = {"gin_spmm_fwd": n * k1 + val_batches * forwards * config.GNN_NUM_LAYERS,
                 "gin_spmm_bwd": n * k1, "ntxent_fwd": n * k2 + val_batches * contrast,
                 "ntxent_bwd": n * k2, "csr_spmm_fwd": 0, "csr_spmm_bwd": 0}
@@ -4123,25 +4498,8 @@ def profile_phase(calls, event_ms) -> None:
     """Where a serving forward's or a train step's time goes: device time by
     kernel from torch.profiler over PROFILE_REPS calls, and the idle share of
     the call's CUDA-event time (timing phase) that no kernel covers."""
-    from torch.profiler import ProfilerActivity, profile
-
     for name, call in calls.items():
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILE_REPS):
-                call()
-            torch.cuda.synchronize()
-        kernels = sorted(
-            ((e.key, e.self_device_time_total / PROFILE_REPS / 1e3, e.count // PROFILE_REPS)
-             for e in prof.key_averages()
-             # Kernels and copies only: an annotated range such as the
-             # optimizer's step shows on the device timeline too, and would
-             # count the kernels under it a second time.
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)
-             and not e.key.startswith("Optimizer.")),
-            key=lambda k: -k[1])
+        kernels = profiled(call)
         busy = sum(ms for _, ms, _ in kernels)
         # K1's tile kernels and, where it splits the contraction, its sums.
         k1 = {d: sum(ms for key, ms, _ in kernels if f"gin_spmm_{d}_" in key)
@@ -4265,20 +4623,33 @@ def main() -> int:
         k2_kernels, _ = ntxent_timing_phase(device, k2_shapes, k2_errors, launches)
         k3_kernels = csr_timing_phase(device, k3_cases, k3_errors, launches)
         profile_phase(calls, event_ms)
+        # After the timing and profile phases (its captures and eager twins
+        # stay out of their numbers), before the artifacts phase (whose
+        # leftovers slow the host).
+        chunk_out, chunked = run_path(lambda: clocked("chunked", lambda: chunked_phase(
+            device, processed_dir, entry_dir, out_root)))
+        emit({"phase": "chunked", "phase_seconds": seconds["chunked"],
+              "step_event_ms": {scheme: {how: t["event_ms"] for how, t in times.items()}
+                                for scheme, times in chunk_out["steps"].items()},
+              "entry_seconds_per_step": chunk_out["entry_seconds_per_step"],
+              "build_batch_ms_per_s5_step": chunk_out["build_batch_ms"]})
         # Last: what the artifacts phase leaves in the process (torch.export,
         # a profiler session, anomaly mode) slowed the serving forwards timed
         # after it (tools/serving_ab.py).
         (nan_inputs, temp), artifacts = run_path(lambda: clocked("artifacts", lambda: (
             artifacts_phase(device, processed_dir, out_root, Path(tmp) / "artifacts", card))))
         k2_nan_phase(nan_inputs, temp, card)
+        # Last: a failed capture may leave its side stream current.
+        capture_failure_phase(device, processed_dir)
     for name in kernels:
+        launches[name]["chunked"] = chunked[name]
         launches[name]["artifacts"] = artifacts[name]
     kernel_rows = k1_kernels + k2_kernels + k3_kernels
     for k in kernel_rows:
         k["launches"] = sum(k["launches_by_path"].values())
     k3 = CELL_KERNELS["csr"]
     unlaunched = [name for name in kernels if name not in k3
-                  and min(pretrain[name], pretrain_tasks[name], resume[name],
+                  and min(pretrain[name], pretrain_tasks[name], chunked[name], resume[name],
                           drivers[name], dp[name], data[name]) < 1]
     unlaunched += [name for name in k3 if min(csr[name], drivers[name], data[name]) < 1]
     if min(serving["gin_spmm_fwd"], train["gin_spmm_fwd"], train["gin_spmm_bwd"],

@@ -79,9 +79,10 @@ class BalancedMultiDomainSampler:
         for _ in range(self.num_steps):
             yield self.sample_step()
 
-    def sample_step(self) -> Dict[str, GraphBatch]:
+    def sample_indices(self) -> Dict[str, np.ndarray]:
+        """One step's draw: the graphs of each domain, without building."""
         out = {}
-        for d, store in self.domain_stores.items():
+        for d in self.domain_stores:
             ix = self.train_indices[d]
             n_pad, e_pad = self.pads[d]
             nn, ne = self.graph_sizes[d]
@@ -93,9 +94,13 @@ class BalancedMultiDomainSampler:
                 raise RuntimeError(
                     f"{d}: 100 consecutive draws exceeded the quantile pad "
                     f"budget (n_pad={n_pad}, e_pad={e_pad})")
-            out[d] = build_batch(store, chosen, n_pad, e_pad,
-                                 self.samples_per_domain, with_properties=True)
+            out[d] = chosen
         return out
+
+    def sample_step(self) -> Dict[str, GraphBatch]:
+        return {d: build_batch(self.domain_stores[d], chosen, *self.pads[d],
+                               self.samples_per_domain, with_properties=True)
+                for d, chosen in self.sample_indices().items()}
 
 
 def create_pretrain_train_loader(domains: Sequence[str], rng: np.random.Generator,

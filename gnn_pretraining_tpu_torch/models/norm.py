@@ -48,7 +48,9 @@ class MaskedBatchNorm(nn.Module):
                 sum_x = (x * m).sum(0)
             else:
                 m = None
-                n = torch.tensor(float(x.shape[0]), dtype=x.dtype, device=x.device)
+                # Filled on the card: no host value to copy (a CUDA graph
+                # capture refuses a copy from pageable host memory).
+                n = torch.full((), float(x.shape[0]), dtype=x.dtype, device=x.device)
                 sum_x = x.sum(0)
             if self.axis is not None:
                 n, sum_x = self.axis.psum(n), self.axis.psum(sum_x)

@@ -219,5 +219,5 @@ def nt_xent(z1: torch.Tensor, z2: torch.Tensor, temperature,
     ``valid`` [N]; returns ``(loss_sum, num_rows)`` like
     ``ops.sddmm.nt_xent_loss``, differentiable in ``z1`` and ``z2``."""
     if not torch.is_tensor(temperature):
-        temperature = torch.tensor([float(temperature)], device=z1.device)
+        temperature = torch.full((1,), float(temperature), device=z1.device)
     return _NtXent.apply(z1, z2, temperature, valid)

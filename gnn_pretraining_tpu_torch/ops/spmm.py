@@ -109,7 +109,7 @@ def _launch(entry: str, adj: torch.Tensor, h: torch.Tensor, eps,
     if not (adj.is_contiguous() and h.is_contiguous()):
         raise ValueError("K1 takes contiguous adj and h")
     if not torch.is_tensor(eps):
-        eps = torch.tensor([float(eps)], dtype=torch.float32, device=h.device)
+        eps = torch.full((1,), float(eps), dtype=torch.float32, device=h.device)
     if eps.numel() != 1 or eps.dtype != torch.float32 or eps.device != h.device:
         raise ValueError(f"eps must be one f32 value on {h.device}")
     eps = eps.detach().reshape(1).contiguous()
@@ -193,7 +193,7 @@ def spmm(adj: torch.Tensor, h: torch.Tensor, eps,
     (forward and backward) for CUDA tensors, its plain versions for tensors
     on the CPU."""
     if not torch.is_tensor(eps):
-        eps = torch.tensor([float(eps)], dtype=torch.float32, device=h.device)
+        eps = torch.full((1,), float(eps), dtype=torch.float32, device=h.device)
     return _GinSpmm.apply(adj, h, eps, mode)
 
 

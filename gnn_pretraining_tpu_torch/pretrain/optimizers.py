@@ -10,6 +10,11 @@ as ``optax.adamw``.
 Every parameter must be handed a gradient, zeros where no task reached it:
 ``torch.optim.AdamW`` skips a parameter whose ``grad`` is None, while optax
 decays it and moves its moments toward zero.
+
+On the card the AdamW is ``capturable``: its step counts live on the card
+beside the moments and its bias corrections are computed there, so a train
+step that holds ``optimizer.step()`` can be captured in a CUDA graph and
+replayed (``pretrain.make_chunked_train_step``). On the CPU it is not.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ def param_labels(model: torch.nn.Module, active_tasks: Sequence[str]) -> Dict[st
 def create_task_specific_optimizer(model: torch.nn.Module,
                                    active_tasks: Sequence[str]):
     """(optimizer, labels, lrs): one AdamW parameter group per label that has
-    a parameter (``default`` and each task's heads)."""
+    a parameter (``default`` and each task's heads); ``capturable`` where the
+    parameters are on the card."""
     labels = param_labels(model, active_tasks)
     lrs = {"default": config.DEFAULT_LR,
            **{t: config.TASK_SPECIFIC_LR[t] for t in active_tasks}}
@@ -46,8 +52,10 @@ def create_task_specific_optimizer(model: torch.nn.Module,
         members = [p for name, p in model.named_parameters() if labels[name] == label]
         if members:
             groups.append({"params": members, "lr": lr, "name": label})
+    on_card = next(model.parameters()).device.type == "cuda"
     optimizer = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=config.DEFAULT_WEIGHT_DECAY)
+                                  weight_decay=config.DEFAULT_WEIGHT_DECAY,
+                                  capturable=on_card)
     return optimizer, labels, {g["name"]: g["lr"] for g in groups}
 
 

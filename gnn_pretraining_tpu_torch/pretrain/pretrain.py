@@ -1,7 +1,8 @@
-"""Pretraining runtime: the multi-task train step and the host loop.
+"""Pretraining runtime: the multi-task train step, its chunked runner and the
+host loop.
 
 Port of ``gnn_pretraining_tpu/pretrain/pretrain.py`` (reference
-src/pretrain/pretrain.py:96-353), the per-step path. One train step:
+src/pretrain/pretrain.py:96-353). One train step:
 
   1. each task's loss over all domains, and its own gradient
      (``torch.autograd.grad``; a parameter no task reaches gets zeros); the
@@ -14,6 +15,31 @@ src/pretrain/pretrain.py:96-353), the per-step path. One train step:
      torch-style clipping to norm 0.5 and one AdamW step with per-task head
      learning rates;
   4. the same metric keys as the JAX step.
+
+The step reads no host value that changes from step to step: its counters
+(``PretrainState``: the scheduler step and the balancer's count) are device
+tensors it advances itself, with host mirrors the loop advances by the
+steps run; τ and λ come from per-step tables (``pretrain.schedulers``)
+indexed on the device; PCGrad's layout is built once and its task order is
+a device tensor. So one step is a fixed sequence of launches on fixed
+buffers, which the chunked runner (``make_chunked_train_step``, the
+counterpart of the JAX package's ``lax.scan`` chunk, JAX :268-354) captures
+in one CUDA graph per scheme and replays for every step: the host writes a
+step's batches and PCGrad order into the graph's input buffer and replays
+it, and the step's metrics go into one packed ``[M, chunk]`` tensor (rows in
+sorted name order) fetched once per ``CHUNK_FLUSH_EVERY`` chunks. A producer
+thread (``chunked.prefetched``) samples the chunks' graphs, builds them with
+the native builder into pinned host memory and draws their PCGrad orders
+from the run's PCGrad generator in step order; the loop copies each chunk to
+the card. On the CPU the same runner runs the same step eagerly, step by
+step. On the card a failed capture or replay raises: there is no eager
+fallback.
+
+``pretrain(chunk_steps=32)`` takes the chunked runner on one device, as the
+JAX package does; ``chunk_steps=1``, the data-parallel path and the path
+under ``--debug_nans`` (whose checks read every step's values on the host)
+take the per-step step (``make_train_step``). Both give the same steps: the
+same batches, draws, PCGrad orders and metric rows.
 
 The host loop samples the balanced multi-domain batches, evaluates every
 epoch (its balancer count is written back into the state), keeps the best
@@ -50,8 +76,7 @@ alone evaluates (every rank then takes its total) and writes the log, the
 checkpoint, the summary and the resume file, which holds every rank's
 random streams; every rank restores the same state from it.
 
-Every scheme of ``config.ALL_SCHEMES`` runs. Left for later: the chunked
-``lax.scan`` runner (its per-step semantics are these).
+Every scheme of ``config.ALL_SCHEMES`` runs.
 """
 
 from __future__ import annotations
@@ -84,8 +109,15 @@ from gnn_pretraining_tpu_torch.pretrain.optimizers import (
     create_task_specific_optimizer,
     param_labels,
 )
-from gnn_pretraining_tpu_torch.pretrain.pcgrad import apply_pcgrad
-from gnn_pretraining_tpu_torch.pretrain.schedulers import grl_lambda_at, temperature_at
+from gnn_pretraining_tpu_torch.pretrain.chunked import (
+    ChunkRunner,
+    StepLayout,
+    chunk_batches,
+    prefetched,
+    warmup_row,
+)
+from gnn_pretraining_tpu_torch.pretrain.pcgrad import apply_pcgrad, pcgrad_layout
+from gnn_pretraining_tpu_torch.pretrain.schedulers import grl_lambda_table, temperature_table
 from gnn_pretraining_tpu_torch.pretrain.tasks import (
     TaskContext,
     TaskDraws,
@@ -112,16 +144,47 @@ from gnn_pretraining_tpu_torch.utils.profiling import (
     nan_checks_enabled,
 )
 
-FLUSH_EVERY = 8          # train steps between two fetches of their metrics
+FLUSH_EVERY = 8          # per-step path: steps between two fetches of their metrics
+CHUNK_FLUSH_EVERY = 2    # chunked path: chunks between two fetches (JAX FLUSH_EVERY)
 RESUME_EVERY = 5         # epochs between two resume files (and the last one)
 
 
 @dataclasses.dataclass
 class PretrainState:
     """The counters the JAX ``TrainState`` threads beside params and optimizer
-    (which live in the model and the AdamW here)."""
-    opt_step: int = 0        # scheduler step (pre-step value)
-    balancer_step: int = 0   # the balancer's step count
+    (which live in the model and the AdamW here): the scheduler step
+    (pre-step value) and the balancer's step count. The train step reads and
+    advances their device copy (``device_counters``, int64 [2]); the fields
+    are its host mirrors, which the caller advances by the steps run
+    (``advance``) and which evaluation, the resume file and the log read. A
+    mirror set on the host (evaluation's balancer count, a resumed run's
+    counters) is copied to the device before the next step."""
+    opt_step: int = 0
+    balancer_step: int = 0
+    counters: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False,
+                                                         compare=False)
+    synced: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
+
+    def device_counters(self, device) -> torch.Tensor:
+        """The device counters (opt_step, balancer_step), one tensor kept for
+        the run and written in place, so a captured step keeps reading it."""
+        device = torch.device(device)
+        here = None if self.counters is None else self.counters.device
+        if here is None or here.type != device.type or device.index not in (None, here.index):
+            self.counters = torch.zeros(2, dtype=torch.long, device=device)
+            self.synced = None
+        mirrors = (self.opt_step, self.balancer_step)
+        if self.synced != mirrors:
+            self.counters.copy_(torch.tensor(mirrors, dtype=torch.long))
+            self.synced = mirrors
+        return self.counters
+
+    def advance(self, steps: int, balancer_steps: int) -> None:
+        """Advance the mirrors as ``steps`` train steps advanced the device
+        counters (``balancer_steps`` of them counted by the balancer)."""
+        self.opt_step += steps
+        self.balancer_step += balancer_steps
+        self.synced = (self.opt_step, self.balancer_step)
 
 
 def _stream_seed(seed: int, axis) -> int:
@@ -233,15 +296,21 @@ def load_resume_state(path, model: PretrainableGNN, optimizer, cfg: config.Pretr
     return payload["counters"]
 
 
-def _context(step: int, total_steps: int, views: ViewSource, draws: TaskDraws,
-             device, axis=None) -> TaskContext:
-    temp = torch.tensor([temperature_at(step, total_steps)], device=device)
-    lam = torch.tensor([grl_lambda_at(step, total_steps)], device=device)
-    return TaskContext(temperature=temp, views=views, grl_lambda=lam, draws=draws,
-                       axis=axis)
+def _at(table: torch.Tensor, step) -> torch.Tensor:
+    """``table``'s [1] entry at ``step`` (a host int, or an int64 [1] device
+    tensor); a step past the table's end reads its last entry."""
+    last = table.shape[0] - 1
+    if torch.is_tensor(step):
+        return torch.index_select(table, 0, torch.clamp(step, max=last))
+    step = min(int(step), last)
+    return table[step:step + 1]
 
 
-def _task_grad(loss: torch.Tensor, params, step: int, task: str):
+def _device_table(table, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(table, np.float32)).to(device)
+
+
+def _task_grad(loss: torch.Tensor, params, step: Optional[int], task: str):
     """Each parameter's gradient of ``loss`` (None where it has none). Under
     the NaN checks, anomaly mode's error for a backward op that made a NaN
     is raised as ``FloatingPointError``."""
@@ -254,72 +323,80 @@ def _task_grad(loss: torch.Tensor, params, step: int, task: str):
         raise
 
 
-def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimizer,
-                    total_steps: int, views: ViewSource,
-                    pcgrad_generator: Optional[torch.Generator] = None,
-                    draws: Optional[TaskDraws] = None, axis=None):
-    """``train_step(state, domain_batches, perm=None) -> metrics`` (device
-    tensors). It updates the model, the optimizer and ``state``; ``perm``
-    replaces PCGrad's draw of the task order; ``draws`` hands node-feature
-    masking and link prediction their uniforms (unseeded by default: a
-    scheme with those tasks needs one). ``train_step.last_task_grads`` holds
-    the last step's per-task gradients (task -> one tensor per parameter, in
-    ``named_parameters`` order), before PCGrad, the domain-adversarial one
-    among them. Under ``utils.profiling.enable_nan_checks`` each task loss,
-    the combined gradient and the updated parameters are checked
-    (``FloatingPointError`` at the first non-finite value, naming the step,
-    counted from 0, and the task or parameter). With ``axis`` (a
-    ``parallel.mesh.DataAxis``; ``model`` built on it) the step is the
-    data-parallel one (``parallel.data_parallel``): each task's gradient is
-    averaged over the ranks, and the task gradients kept are those."""
-    tasks = [t for t in cfg.active_tasks if t != "domain_adv"]
-    has_da = "domain_adv" in cfg.active_tasks
-    names = [n for n, _ in model.named_parameters()]
-    params = [p for _, p in model.named_parameters()]
-    top_keys = [n.split(".")[0] for n in names]
-    device = params[0].device
-    draws = draws if draws is not None else TaskDraws(device)
+class StepBody:
+    """One train step on device inputs: ``body(counters, domain_batches,
+    perm, checked_step=None) -> (metrics, task_grads)``. ``counters`` is the state's
+    int64 [2] device tensor (advanced in place), ``perm`` PCGrad's order of
+    the sorted main tasks as an integer device tensor (None with one task).
+    Everything else it reads is built here once: the τ and λ tables, PCGrad's
+    layout, the counters' increment. ``checked_step`` (the host step, counted
+    from 0) turns on the NaN checks, which read values on the host."""
 
-    def train_step(state: PretrainState, domain_batches, perm=None):
+    def __init__(self, model: PretrainableGNN, cfg: config.PretrainConfig, optimizer,
+                 total_steps: int, views: ViewSource, draws: Optional[TaskDraws] = None,
+                 axis=None):
+        self.model, self.cfg, self.optimizer, self.axis = model, cfg, optimizer, axis
+        self.tasks = [t for t in cfg.active_tasks if t != "domain_adv"]
+        self.has_da = "domain_adv" in cfg.active_tasks
+        self.names = [n for n, _ in model.named_parameters()]
+        self.params = [p for _, p in model.named_parameters()]
+        self.top_keys = [n.split(".")[0] for n in self.names]
+        self.device = self.params[0].device
+        self.views = views
+        self.draws = draws if draws is not None else TaskDraws(self.device)
+        self.temperature = _device_table(temperature_table(total_steps), self.device)
+        self.grl_lambda = _device_table(grl_lambda_table(total_steps), self.device)
+        self.multi_task = len(self.tasks) > 1
+        self.increment = torch.tensor([1, int(self.multi_task)]).to(self.device)
+        self.layout = (pcgrad_layout([p.shape for p in self.params], self.top_keys,
+                                     self.tasks, self.device) if self.multi_task else None)
+
+    def context(self, step) -> TaskContext:
+        return TaskContext(temperature=_at(self.temperature, step), views=self.views,
+                           grl_lambda=_at(self.grl_lambda, step), draws=self.draws,
+                           axis=self.axis)
+
+    def __call__(self, counters: torch.Tensor, domain_batches, perm,
+                 checked_step: Optional[int] = None):
+        model, params, tasks, has_da = self.model, self.params, self.tasks, self.has_da
+        where = None if checked_step is None else f"train step {checked_step}"
         model.train()
-        ctx = _context(state.opt_step, total_steps, views, draws, device, axis)
+        step = counters[0:1]
+        ctx = self.context(step)
         task_losses, per_domain_task, grads = {}, {}, {}
-        checked = nan_checks_enabled()
-        where = f"train step {state.opt_step}" if checked else None
         for t in tasks + ["domain_adv"] * has_da:
             loss, per_domain = compute_task_loss(t, model, domain_batches, ctx)
-            if checked:
+            if where is not None:
                 check_finite(where, [(f"task {t} loss", loss)])
-            g = _task_grad(loss, params, state.opt_step, t)
+            g = _task_grad(loss, params, checked_step, t)
             grads[t] = [torch.zeros_like(p) if gi is None else gi
                         for p, gi in zip(params, g)]
-            if axis is not None:
-                grads[t] = axis.pmean(grads[t])
+            if self.axis is not None:
+                grads[t] = self.axis.pmean(grads[t])
             task_losses[t] = loss.detach()
             per_domain_task[t] = {d: v.detach() for d, v in per_domain.items()}
 
-        train_step.last_task_grads = dict(grads)
+        task_grads = dict(grads)
         da_loss = task_losses.pop("domain_adv", None)
         da_grads = grads.pop("domain_adv", None)
-        total, weights, state.balancer_step = balance_losses(task_losses,
-                                                             state.balancer_step)
-        if len(tasks) > 1:
-            combined, metrics = apply_pcgrad(grads, top_keys,
-                                             generator=pcgrad_generator, perm=perm)
+        total, weights, _ = balance_losses(task_losses, counters[1])
+        if self.multi_task:
+            combined, metrics = apply_pcgrad(grads, self.top_keys, perm=perm,
+                                             layout=self.layout)
         else:
             combined, metrics = grads[tasks[0]], {}
         if has_da:                                 # after PCGrad, before clipping
             combined = torch._foreach_add(combined, da_grads)
-        if checked:
+        if where is not None:
             check_finite(where, ((f"combined gradient of {n}", g)
-                                 for n, g in zip(names, combined)))
+                                 for n, g in zip(self.names, combined)))
         clipped, pre_norm = clip_grads_torch(combined)
         for p, g in zip(params, clipped):
             p.grad = g
-        optimizer.step()
-        if checked:
+        self.optimizer.step()
+        if where is not None:
             check_finite(where, ((f"parameter {n} after the update", p)
-                                 for n, p in zip(names, params)))
+                                 for n, p in zip(self.names, params)))
 
         metrics["train/loss/total"] = total
         for t, w in weights.items():
@@ -332,19 +409,77 @@ def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimize
                 metrics[f"train/loss/{d}/{t}"] = v
         for t, v in task_losses.items():
             metrics[f"train/loss/{t}"] = v
-        for d in cfg.pretrain_domains:
+        for d in self.cfg.pretrain_domains:
             metrics[f"train/loss/{d}"] = sum(per_domain_task[t][d] for t in per_domain_task)
         if has_da:
             metrics["train/loss/domain_adv"] = da_loss
             metrics["train/domain_adv/loss"] = da_loss
             # The reference logs λ after stepping its scheduler (pretrain.py:173).
-            metrics["train/domain_adv/lambda"] = torch.tensor(
-                grl_lambda_at(state.opt_step + 1, total_steps), device=device)
-        state.opt_step += 1
+            metrics["train/domain_adv/lambda"] = _at(self.grl_lambda, step + 1).reshape(())
+        counters.add_(self.increment)
+        return metrics, task_grads
+
+
+def make_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimizer,
+                    total_steps: int, views: ViewSource,
+                    pcgrad_generator: Optional[torch.Generator] = None,
+                    draws: Optional[TaskDraws] = None, axis=None):
+    """``train_step(state, domain_batches, perm=None) -> metrics`` (device
+    tensors), the per-step path. It updates the model, the optimizer and
+    ``state``; ``perm`` replaces PCGrad's draw of the task order from
+    ``pcgrad_generator``; ``draws`` hands node-feature masking and link
+    prediction their uniforms (unseeded by default: a scheme with those
+    tasks needs one). ``train_step.last_task_grads`` holds the last step's
+    per-task gradients (task -> one tensor per parameter, in
+    ``named_parameters`` order), before PCGrad, the domain-adversarial one
+    among them. Under ``utils.profiling.enable_nan_checks`` each task loss,
+    the combined gradient and the updated parameters are checked
+    (``FloatingPointError`` at the first non-finite value, naming the step,
+    counted from 0, and the task or parameter). With ``axis`` (a
+    ``parallel.mesh.DataAxis``; ``model`` built on it) the step is the
+    data-parallel one (``parallel.data_parallel``): each task's gradient is
+    averaged over the ranks, and the task gradients kept are those."""
+    body = StepBody(model, cfg, optimizer, total_steps, views, draws, axis)
+    k = len(body.tasks)
+
+    def train_step(state: PretrainState, domain_batches, perm=None):
+        if body.multi_task:
+            if perm is None:
+                perm = torch.randperm(k, generator=pcgrad_generator)
+            perm = torch.as_tensor(perm, dtype=torch.long).to(body.device)
+        else:
+            perm = None
+        checked = state.opt_step if nan_checks_enabled() else None
+        metrics, train_step.last_task_grads = body(state.device_counters(body.device),
+                                                   domain_batches, perm, checked)
+        state.advance(1, int(body.multi_task))
         return metrics
 
     train_step.last_task_grads = None
     return train_step
+
+
+def make_chunked_train_step(model: PretrainableGNN, cfg: config.PretrainConfig, optimizer,
+                            total_steps: int, streams: Dict[str, Any]):
+    """The chunked runner (JAX :268-325): ``(run_chunk, metric_names)``.
+
+    ``run_chunk(state, words, layout) -> packed`` runs a chunk of train
+    steps: ``words`` [chunk, layout.words] int32 holds each step's batches
+    and PCGrad order (``chunked.stack_batches`` / ``chunk_batches``, on the
+    host or the card), ``packed`` [M, chunk] f32 on the card holds each
+    step's metrics, rows in ``metric_names`` order (the sorted metric keys,
+    filled at the first step or capture). On the card the step is captured
+    once in a CUDA graph (``run_chunk.capture``, before the first chunk or at
+    it, after any resume file is loaded: snapshot, one warm-up step on a
+    side stream, restore, capture) and replayed for every step; on the CPU
+    it runs eagerly. ``streams`` are ``random_streams``' (dropout, views and
+    task draws are the graph's generators; the PCGrad orders in ``words``
+    come from ``streams["pcgrad"]``). The steps equal ``make_train_step``'s
+    on the same batches, PCGrad orders and streams."""
+    body = StepBody(model, cfg, optimizer, total_steps, streams["views"],
+                    streams["task_draws"])
+    runner = ChunkRunner(body, model, optimizer, streams)
+    return runner, runner.metric_names
 
 
 def make_eval_fn(model: PretrainableGNN, cfg: config.PretrainConfig,
@@ -353,11 +488,14 @@ def make_eval_fn(model: PretrainableGNN, cfg: config.PretrainConfig,
     each call takes fresh views, masks and negatives."""
     device = next(model.parameters()).device
     draws = draws if draws is not None else TaskDraws(device)
+    temperature = _device_table(temperature_table(total_steps), device)
+    grl_lambda = _device_table(grl_lambda_table(total_steps), device)
 
     @torch.no_grad()
     def eval_task_batch(task: str, domain: str, batch, step: int) -> torch.Tensor:
         model.eval()
-        ctx = _context(step, total_steps, views, draws, device)
+        ctx = TaskContext(temperature=_at(temperature, step), views=views,
+                          grl_lambda=_at(grl_lambda, step), draws=draws)
         loss, _ = compute_task_loss(task, model, {domain: batch}, ctx)
         if nan_checks_enabled():
             check_finite(f"eval at step {step}", [(f"task {task} loss on {domain}", loss)])
@@ -405,7 +543,8 @@ def run_evaluation(eval_fn, state: PretrainState, cfg, val_loaders, logger,
 def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
              epochs: int = config.PRETRAIN_EPOCHS, processed_dir=None,
              use_wandb: bool = False, resume: bool = False, out_root=None,
-             device=None, data_parallel: bool = False, axis=None) -> Dict[str, object]:
+             device=None, data_parallel: bool = False, axis=None,
+             chunk_steps: int = 32) -> Dict[str, object]:
     """Pretrain one scheme and return ``{best_val_total, epochs, checkpoint}``.
 
     Runs on the card unless ``device="cpu"``. Checkpoints (and, with
@@ -413,7 +552,11 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
     ``out_root/metrics``. A resume file written at the last epoch leaves
     nothing to train: the summary is written and ``epochs`` is that epoch.
     ``data_parallel`` on ``axis`` (else ``make_mesh(device)``): see the
-    module docstring."""
+    module docstring. On one device with ``chunk_steps > 1`` the steps run
+    through the chunked runner, ``min(chunk_steps, steps_per_epoch)`` to a
+    chunk (the last of an epoch ragged), their metrics fetched every
+    ``CHUNK_FLUSH_EVERY`` chunks; the data-parallel path, ``chunk_steps=1``
+    and the NaN-checked path (``--debug_nans``) run step by step."""
     device = resolve_device(device)
     axis = (axis or make_mesh(device)) if data_parallel else None
     if axis is not None and axis.size == 1:
@@ -444,6 +587,16 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
                                                 processed_dir=processed_dir)
     steps_per_epoch = len(train_loader)
     total_steps = steps_per_epoch * epochs
+    chunked = axis is None and chunk_steps > 1 and not nan_checks_enabled()
+    if chunked:
+        chunk = int(min(chunk_steps, steps_per_epoch))
+        run_chunk, metric_names = make_chunked_train_step(model, cfg, optimizer,
+                                                          total_steps, streams)
+        layout = StepLayout.of_loader(train_loader, len(run_chunk.body.tasks))
+        train_step = None
+    else:
+        train_step = make_train_step(model, cfg, optimizer, total_steps, streams["views"],
+                                     streams["pcgrad"], streams["task_draws"], axis=axis)
     if axis is None:
         train_batches = train_loader.__iter__
     else:
@@ -454,24 +607,31 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
                 yield shard_sampler_step(train_loader, axis.size, axis.rank, pads)
 
     state = PretrainState()
-    train_step = make_train_step(model, cfg, optimizer, total_steps, streams["views"],
-                                 streams["pcgrad"], streams["task_draws"], axis=axis)
     eval_fn = make_eval_fn(model, cfg, total_steps, streams["views"], streams["task_draws"])
 
     # Aggregations per step and domain: two views per contrastive task.
     forwards = sum(2 if t in ("node_contrast", "graph_contrast") else 1
                    for t in cfg.active_tasks)
     meter = ThroughputMeter()
-    pending: List[tuple] = []     # (step, epoch, device metrics, real edges)
+    # (first step, epoch, device metrics, real edges): one step's metric dict
+    # and edge count, or one chunk's packed [M, chunk] metrics and edges [chunk].
+    pending: List[tuple] = []
 
     def flush_pending():
         if not pending:
             return
-        keys = sorted(pending[0][2])
-        values = torch.stack([torch.stack([m[k].to(torch.float32).reshape(())
-                                           for k in keys])
-                              for _, _, m, _ in pending]).cpu().numpy()
-        for (step, epoch_of, _, edges), row in zip(pending, values):
+        if chunked:
+            values = torch.cat([m for _, _, m, _ in pending], dim=1).cpu().numpy().T
+            keys = list(metric_names)
+            steps = [(s0 + j, ep, e) for s0, ep, _, edges in pending
+                     for j, e in enumerate(edges)]
+        else:
+            keys = sorted(pending[0][2])
+            values = torch.stack([torch.stack([m[k].to(torch.float32).reshape(())
+                                               for k in keys])
+                                  for _, _, m, _ in pending]).cpu().numpy()
+            steps = [(s0, ep, e) for s0, ep, _, e in pending]
+        for (step, epoch_of, edges), row in zip(steps, values):
             m = {k: float(v) for k, v in zip(keys, row)}
             m["train/progress/epoch"] = epoch_of
             meter.update(float(edges), forwards * config.GNN_NUM_LAYERS)
@@ -494,22 +654,45 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
             print(f"resumed {cfg.run_name} at epoch {start_epoch} "
                   f"(best_val={best_total:.4f})", flush=True)
     first_step = global_step + 1
+    if chunked and device.type == "cuda" and start_epoch <= epochs:
+        # Capture before the first upload, after the resume file is loaded
+        # (it replaces the optimizer's state tensors).
+        run_chunk.capture(state, torch.from_numpy(warmup_row(train_loader, layout)), layout)
+        print(f"[{cfg.run_name} +{time.time() - t_start:7.1f}s] train step captured "
+              f"({sum(run_chunk.capture_launches.values())} kernel launches counted)",
+              flush=True)
+
+    def upload(item):
+        words, edges = item
+        return words.to(device, non_blocking=True), edges
 
     epoch = start_epoch - 1          # the loop is empty after a last-epoch resume
     for epoch in range(start_epoch, epochs + 1):
-        for host_batches in train_batches():
-            global_step += 1
-            edges = int(sum(float(b.edge_mask.sum()) for b in host_batches.values()))
-            if axis is not None:        # the global batch's: every rank's share
-                edges = axis.psum(torch.tensor([float(edges)], device=device))
-            batches = {d: b.to(device) for d, b in host_batches.items()}
-            metrics = train_step(state, batches)
-            if lead:
-                pending.append((global_step, epoch, metrics, edges))
-            if len(pending) >= FLUSH_EVERY:
-                flush_pending()
-            if global_step == first_step:
-                meter.reset()            # the first step's warm-up is not counted
+        if chunked:
+            chunks = chunk_batches(train_loader, layout, steps_per_epoch, chunk,
+                                   streams["pcgrad"], pin=device.type == "cuda")
+            for words, step_edges in prefetched(chunks, put=upload):
+                packed = run_chunk(state, words, layout)
+                pending.append((global_step + 1, epoch, packed, step_edges))
+                global_step += len(step_edges)
+                if len(pending) >= CHUNK_FLUSH_EVERY:
+                    flush_pending()
+                if global_step - len(step_edges) + 1 == first_step:
+                    meter.reset()        # the first chunk is not counted
+        else:
+            for host_batches in train_batches():
+                global_step += 1
+                edges = int(sum(float(b.edge_mask.sum()) for b in host_batches.values()))
+                if axis is not None:        # the global batch's: every rank's share
+                    edges = axis.psum(torch.tensor([float(edges)], device=device))
+                batches = {d: b.to(device) for d, b in host_batches.items()}
+                metrics = train_step(state, batches)
+                if lead:
+                    pending.append((global_step, epoch, metrics, edges))
+                if len(pending) >= FLUSH_EVERY:
+                    flush_pending()
+                if global_step == first_step:
+                    meter.reset()            # the first step's warm-up is not counted
         flush_pending()
 
         if lead:
@@ -534,6 +717,8 @@ def pretrain(cfg: config.PretrainConfig, aggregation: str = "pallas",
                               best_total, epochs_since_improvement, axis)
         if epochs_since_improvement >= int(epochs * config.PRETRAIN_PATIENCE_FRACTION):
             break
+    if chunked:
+        run_chunk.release()
 
     logger.finish(extra=fidelity_block(epochs, cfg.seed, aggregation, processed_dir,
                                        cfg.pretrain_domains))

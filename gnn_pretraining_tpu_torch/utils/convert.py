@@ -169,7 +169,8 @@ def adamw_to_opt_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     """The optax state that matches ``optimizer``'s (``labels``: parameter
     name -> label; ``label_order``: the transforms' labels in order). Every
     parameter must have taken as many steps as every other (the train step
-    hands each one a gradient), or none."""
+    hands each one a gradient), or none. A step count on the card (a
+    capturable AdamW's) is read back to the host."""
     named = list(model.named_parameters())
     states = [optimizer.state.get(p) for _, p in named]
     steps = {int(s["step"]) for s in states if s}
@@ -196,13 +197,15 @@ def load_adamw_state(opt_state: Dict[str, Any], model: torch.nn.Module,
                      label_order: List[str]) -> None:
     """Set ``optimizer``'s state from an optax state in the layout above
     (``adamw_to_opt_state``'s, or the JAX package's). A count of 0 leaves a
-    parameter's state empty, as a fresh AdamW has it. Raises, naming the key,
+    parameter's state empty, as a fresh AdamW has it; a capturable AdamW (the
+    card's) gets its step counts on the parameters' device. Raises, naming the key,
     on labels, parameters or shapes that do not match the model."""
     inner_states = opt_state["inner_states"]
     if set(inner_states) != set(label_order):
         raise ValueError(f"opt_state labels {sorted(inner_states)} do not match the "
                          f"optimizer's {sorted(label_order)}")
     params = dict(model.named_parameters())
+    capturable = any(g.get("capturable", False) for g in optimizer.param_groups)
     for label in label_order:
         where = f"opt_state/inner_states/{label}/inner_state"
         inner = inner_states[label]["inner_state"]
@@ -229,7 +232,9 @@ def load_adamw_state(opt_state: Dict[str, Any], model: torch.nn.Module,
                 optimizer.state.pop(p, None)
                 continue
             optimizer.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
+                # A capturable AdamW keeps its step on the parameter's device.
+                "step": torch.tensor(float(count), dtype=torch.float32,
+                                     device=p.device if capturable else "cpu"),
                 "exp_avg": moments["mu"][name].to(device=p.device, dtype=p.dtype),
                 "exp_avg_sq": moments["nu"][name].to(device=p.device, dtype=p.dtype)}
 
